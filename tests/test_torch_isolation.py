@@ -1,0 +1,78 @@
+"""The port stands alone: no JAX and nothing of the ``repro`` package.
+
+A subprocess blocks both imports (``sys.modules[...] = None`` makes any
+import of them raise), then imports the port, writes a file and reads it
+back on the CPU, and checks that the default device asks for a card.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_CHILD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+import repro_torch
+from repro_torch.core.columnar import from_ragged
+from repro_torch.core.filters import Range
+from repro_torch.core.reader import SpatialParquetReader
+from repro_torch.core.writer import write_file
+from repro_torch.data.synthetic import porto_taxi_like
+import repro_torch.kernels.fp_delta, repro_torch.kernels.minmax, repro_torch.io, repro_torch.obs
+
+cols = porto_taxi_like(n_traj=120)
+n = cols.n_records
+extra = {"d": np.arange(n, dtype=np.float32), "t": np.arange(n, dtype=np.int64)}
+path = sys.argv[1]
+write_file(path, columns=cols, extra=extra, extra_schema={"d": "<f4", "t": "<i8"},
+           sort="hilbert", page_values=512, device="cpu")
+bbox = (-8.7, 41.1, -8.6, 41.2)
+with SpatialParquetReader(path) as r:
+    dev = r.read_columnar(bbox=bbox, refine=True, device="cpu", filter=Range("d", 10.0, 90.0))
+    host = r.read_columnar(bbox=bbox, refine=True, device="host", filter=Range("d", 10.0, 90.0))
+    assert dev[2].records_returned == host[2].records_returned > 0
+    assert np.array_equal(dev[0].x.view(np.int64), host[0].x.view(np.int64))
+    if not torch.cuda.is_available():
+        try:
+            r.read_columnar(bbox=bbox, refine=True)
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e)
+        else:
+            raise AssertionError("default device ran without a card")
+assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+print("ISOLATED-OK", dev[2].records_returned)
+"""
+
+
+def test_port_runs_with_jax_and_repro_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path / "iso.spqf")],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED-OK" in out.stdout
+
+
+@pytest.mark.parametrize("root", ["src/repro_torch", "chip_smoke.py"])
+def test_no_import_of_jax_or_repro(root):
+    """Static check over every module of the port and the chip script."""
+    base = Path(__file__).resolve().parents[1] / root
+    files = [base] if base.is_file() else sorted(base.rglob("*.py"))
+    assert files
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), (f, name)
