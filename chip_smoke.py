@@ -10,7 +10,7 @@ Phases, each fatal on failure (nothing is caught):
 
 1. the card's name and power limit; build every CUDA kernel from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started together);
-2. the main path, with every kernel's launch count set to 0 just before:
+2. the file path, with every kernel's launch count set to 0 just before:
    ``write_file`` of a Hilbert-sorted, checksummed float64 Porto-taxi file
    with three extra columns (``duration_s`` float32 reaches the page-stats
    kernel), then five ``read_columnar`` calls on ``device="cuda"``: bbox
@@ -23,7 +23,27 @@ Phases, each fatal on failure (nothing is caught):
    at the main path's shapes and on adversarial inputs (W = 32 and 64,
    escapes, raw pages, NaN, ±inf, ±0, denormals, NaN and all-NaN pages);
    the tolerance is exact equality of bit patterns. Times come from CUDA
-   events after warm-up.
+   events after warm-up;
+4. the LM path, with every launch count set to 0 just before: qwen3-8b at
+   its published widths and depth (36 layers, d_model 4096, 32/8 heads,
+   head_dim 128, qk-norm, vocab 151936; bf16 compute over float32
+   parameters drawn on the card from a seeded generator) with
+   ``attn_impl="flash"``: ``forward`` on (2, 4096) tokens (train_4k's
+   sequence length, its batch of 256 cut to 2) must launch the flash kernel
+   once per layer; a ``BatchedServer(max_batch=4, max_len=256)`` then
+   answers 8 requests of 16-64 random tokens, 16 new tokens each, as a
+   functional check; a second server (``max_batch=32``) answers 256 such
+   requests of 128 new tokens, submitted at once, and its wall time,
+   tokens/s and TTFT / latency percentiles are the serving measurement. The
+   logits are held against the same forward with the plain attention
+   (``attn_impl="ref"``) and both against a float32 forward (see
+   :func:`lm_path` for the rules). A ``torch.profiler`` trace of one more
+   forward and of one decode step (batch 32) splits their device time by
+   kernel group;
+5. the flash kernel against its plain version through ``ops.attention``
+   (see :func:`check_flash` for the tolerances): bf16 and float32 at the LM
+   path's shape, and float32 at the reference's six test shapes (GQA,
+   rectangular, single-token, ragged, non-causal).
 
 Every line is one JSON object. The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
@@ -47,7 +67,17 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FULL_N_TRAJ = 1_710_670          # ECML/PKDD 2015 taxi-trajectory challenge trips
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
-KERNEL_LIBS = ("fp_delta_decode", "segminmax_refine", "page_minmax")
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak (data sheet)
+KERNEL_LIBS = ("fp_delta_decode", "segminmax_refine", "page_minmax", "flash_attention")
+FILE_KERNELS = ("fp_delta.decode_stream", "minmax.segminmax_refine", "minmax.page_minmax")
+LM_KERNELS = ("flash_attention.flash_attention",)
+LM_CONFIG = "qwen3-8b"
+LM_BATCH, LM_SEQ, LM_FULL_BATCH = 2, 4096, 256   # train_4k: seq 4096, global batch 256
+# Serving: prompts of 16-64 tokens (a tokenized trip prefix, as examples/serve_lm.py
+# sends, up to a whole Porto trip of about 48 points) in a cache of 256 positions.
+SERVE_MAX_LEN = 256
+SERVE_CHECK_REQUESTS = 8                        # functional check, max_batch 4, 16 new tokens
+SERVE_LOAD = (256, 32, 128)                      # requests, max_batch, max_new_tokens
 DEVICE = "cuda"
 
 
@@ -243,8 +273,8 @@ def main_path(args, path: Path, counters) -> dict:
                            "pages_read": st.pages_read, "pages_total": st.pages_total,
                            "bytes_read": st.bytes_read, "bytes_total": st.bytes_total}
     launches = {c.kname: c.launches for c in counters}
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    for name in FILE_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the file path")
     return {"gen_s": gen_s, "write_s": write_s, "file_bytes": path.stat().st_size,
             "n_records": int(cols.n_records), "n_points": int(cols.n_values),
             "reads": reads, "launches": launches,
@@ -471,6 +501,313 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
     return table
 
 
+# ---------------------------------------------------------------- LM path
+def diff_stats(a, b, rows: int = 1024) -> dict:
+    """Largest |a - b|, that over max |b|, and the share of positions whose
+    argmax agree, over the last axis; in row chunks to bound the float32
+    temporaries."""
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    mx = bmax = 0.0
+    agree = 0
+    for i in range(0, a2.shape[0], rows):
+        x, y = a2[i:i + rows].float(), b2[i:i + rows].float()
+        mx = max(mx, float((x - y).abs().max()))
+        bmax = max(bmax, float(y.abs().max()))
+        agree += int((x.argmax(-1) == y.argmax(-1)).sum())
+    return {"max_abs": mx, "max_rel": mx / bmax, "top1_agree": agree / a2.shape[0]}
+
+
+def tensors(tree) -> list:
+    """The leaves of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    return [tree]
+
+
+def device_split(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel group, from a
+    ``torch.profiler`` trace: the flash kernel, cuBLAS matrix products, and
+    everything else (casts, norms, RoPE, softmax, copies); and the share of
+    the call's wall time in which some kernel ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups = {"flash_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        name = e.name.lower()
+        if "flash_fwd" in name:
+            key = "flash_ms"
+        elif any(t in name for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+            key = "gemm_ms"
+        else:
+            key = "other_ms"
+        groups[key] += us / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):          # union of the kernels' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    require(spans, "the profiler saw no device activity")
+    return {**groups, "kernels": len(spans), "wall_ms": wall_us / 1e3,
+            "device_busy_share": busy / wall_us}
+
+
+def lm_path(args, counters) -> dict:
+    """qwen3-8b forward (flash) and batched serving; the checks of phase 4.
+
+    Logit tolerance. bf16 rounds at other places on the flash and plain
+    paths (the kernel keeps P and P.V in float32; the plain path rounds P to
+    bf16), and 36 layers carry those roundings to the logits. Both paths
+    are therefore held against a float32 forward of the same weights and
+    tokens, and the flash logits must lie within twice the plain path's own
+    distance to it: max |flash - plain| <= 2 * max |plain - float32|. If
+    the flash path is no less faithful to float32 than the plain one, this
+    holds by the triangle inequality.
+
+    First tokens. Each request's first token must equal the argmax of the
+    plain ``forward`` over its prompt alone, or score within the plain
+    path's measured bf16 noise (max |plain - float32|) of that argmax: the
+    server prefills a right-padded wave of 4 slots, whose bf16 products are
+    rounded in other orders than a batch of one.
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import BatchedServer
+
+    base = get_config(LM_CONFIG)
+    model = build_model(dataclasses.replace(base, attn_impl="flash"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(args.seed, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tensors(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    rng = np.random.default_rng(args.seed + 2)
+    tokens = rng.integers(0, base.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    model.forward(params, {"tokens": tokens[:1, :128]})   # cuBLAS handles, first launches
+    torch.cuda.synchronize()
+
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    flash, _, _ = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    fwd_launches = {c.kname: c.launches for c in counters}
+    require(tuple(flash.shape) == (LM_BATCH, LM_SEQ, base.vocab)
+            and flash.dtype == torch.bfloat16, f"forward gave {flash.dtype} {tuple(flash.shape)}")
+    require(bool(torch.isfinite(flash).all()), "forward gave non-finite logits")
+    require(fwd_launches[LM_KERNELS[0]] == base.n_layers,
+            f"{fwd_launches[LM_KERNELS[0]]} flash launches in one forward, "
+            f"expected {base.n_layers}")
+
+    def serve(n_req, max_batch, new_tokens):
+        """Submit ``n_req`` prompts of 16-64 random tokens at once and run
+        the server until it drains; check every answer."""
+        lens = rng.integers(16, 65, n_req)
+        prompts = [rng.integers(3, base.vocab, int(n)).astype(np.int32) for n in lens]
+        srv = BatchedServer(model.cfg, params, max_batch=max_batch, max_len=SERVE_MAX_LEN)
+        obs.enable()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            srv.submit(p, max_new_tokens=new_tokens, rid=i)
+        done = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hists = obs.snapshot()["histograms"]
+        obs.disable()
+        require(sorted(r.rid for r in done) == list(range(n_req)),
+                f"served rids {sorted(r.rid for r in done)}, expected 0..{n_req - 1}")
+        require(all(1 <= len(r.out_tokens) <= new_tokens for r in done),
+                f"token counts {sorted({len(r.out_tokens) for r in done})}")
+        for h in ("serve.ttft_s", "serve.latency_s"):
+            require(hists[h]["count"] == n_req, f"{h} holds {hists[h]['count']} observations")
+        return srv, done, wall
+
+    # the functional check: a few requests whose first tokens are checked below
+    srv, done, _ = serve(SERVE_CHECK_REQUESTS, 4, 16)
+    launches = {c.kname: c.launches for c in counters}
+    for name in LM_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the LM path")
+    del srv
+    # the load: enough requests and batch for latency percentiles to mean something
+    srv, load_done, load_s = serve(*SERVE_LOAD)
+    n_tok = sum(len(r.out_tokens) for r in load_done)
+    ttft = np.array([r.t_first - r.t_submit for r in load_done])
+    lat = np.array([r.t_done - r.t_submit for r in load_done])
+    qs = {"p50": 50, "p90": 90, "p99": 99}
+    load = {"requests": len(load_done), "max_batch": SERVE_LOAD[1],
+            "max_new_tokens": SERVE_LOAD[2], "new_tokens": n_tok, "wall_s": load_s,
+            "tokens_per_s": n_tok / load_s,
+            "ttft_s": {k: float(np.percentile(ttft, q)) for k, q in qs.items()},
+            "latency_s": {k: float(np.percentile(lat, q)) for k, q in qs.items()}}
+    peak_path = torch.cuda.max_memory_allocated()
+    split = {"forward": device_split(lambda: model.forward(params, {"tokens": tokens}))}
+    srv.submit(load_done[0].prompt, max_new_tokens=3, rid=SERVE_LOAD[0])
+    srv._fill_slots()
+    split["decode_step"] = device_split(srv._decode_once)
+    del srv
+    emit({"lm_device_split": split})
+
+    plain_model = build_model(dataclasses.replace(base, attn_impl="ref"))
+    t0 = time.perf_counter()
+    plain, _, _ = plain_model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32_model = build_model(dataclasses.replace(base, attn_impl="ref", dtype="float32"))
+    t0 = time.perf_counter()
+    full, _, _ = f32_model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    flash_plain = diff_stats(flash, plain)
+    plain_f32 = diff_stats(plain, full)
+    flash_f32 = diff_stats(flash, full)
+    tol = 2 * plain_f32["max_abs"]
+    emit({"lm_logits": {"flash_vs_plain": flash_plain, "plain_vs_float32": plain_f32,
+                        "flash_vs_float32": flash_f32, "tolerance_max_abs": tol,
+                        "tolerance_rel": tol / float(plain.float().abs().max())}})
+    require(flash_plain["max_abs"] <= tol,
+            f"flash logits differ from the plain path by {flash_plain['max_abs']} > {tol}")
+    del flash, plain, full
+
+    noise = plain_f32["max_abs"]
+    exact, worst = 0, 0.0
+    for r in sorted(done, key=lambda r: r.rid):
+        lg, _, _ = plain_model.forward(params, {"tokens": r.prompt[None]})
+        last = lg[0, -1].float()
+        tok = r.out_tokens[0]
+        gap = float(last.max() - last[tok])
+        exact += int(int(last.argmax()) == tok)
+        worst = max(worst, gap)
+        require(gap <= noise, f"request {r.rid}: first token {tok} scores {gap} below the "
+                              f"forward's argmax, beyond the bf16 noise {noise}")
+    first = {"exact": exact, "of": len(done), "largest_gap": worst, "allowed_gap": noise}
+    peak = torch.cuda.max_memory_allocated()
+    del params, model, plain_model, f32_model
+    torch.cuda.empty_cache()
+    return {"config": LM_CONFIG, "n_params": n_params, "param_bytes": param_bytes,
+            "init_s": init_s, "forward_s": forward_s, "forward_tokens": LM_BATCH * LM_SEQ,
+            "plain_forward_s": plain_s, "float32_forward_s": f32_s,
+            "forward_launches": fwd_launches, "launches": launches, "device_split": split,
+            "serve_check": {"requests": len(done),
+                            "prompt_lens": [len(r.prompt) for r in
+                                            sorted(done, key=lambda r: r.rid)],
+                            "new_tokens": sum(len(r.out_tokens) for r in done),
+                            "first_token": first},
+            "serve_load": load,
+            "max_memory_allocated_path": peak_path, "max_memory_allocated": peak}
+
+
+FLASH_F32_SHAPES = [  # tests/test_kernels.py of the reference: (b, hq, hkv, sq, sk, d, causal)
+    (2, 4, 4, 128, 128, 64, True),
+    (1, 8, 2, 256, 256, 64, True),
+    (2, 2, 2, 128, 128, 32, False),
+    (1, 4, 4, 128, 384, 64, True),
+    (1, 2, 2, 1, 128, 64, True),
+    (1, 2, 2, 100, 128, 64, True),
+]
+
+
+def check_flash(seed: int) -> dict:
+    """Phase 5: the flash kernel against its plain version through
+    ``ops.attention``, and its times at the LM path's shape.
+
+    Tolerances. Every element of the kernel's output is held to the float32
+    plain version on the same input values. The kernel computes in float32
+    and rounds once, so in bf16 it must lie within half a bf16 ulp (2^-8 of
+    |want|) plus float32 sum-order noise (1e-5); at S = 4096 most outputs
+    are about 0.03, so the reference's single 3e-2 bound would pass a
+    kernel that is wrong everywhere. That 3e-2 against the bf16 plain
+    version (which rounds P to bf16 before P.V) is still checked, as the
+    reference's parity number. float32: 1e-5 at the LM shape, the
+    reference's 2e-5 at its six shapes.
+    """
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import attention, attention_plain, kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 3)
+    cfg = get_config(LM_CONFIG)
+    main_shape = (LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_SEQ, LM_SEQ,
+                  cfg.resolved_head_dim, True)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype):
+        # (B, S, H, D) as the model holds them, handed over as (B, H, S, D) views
+        def one(h, s):
+            a = torch.from_numpy(rng.normal(0, 1, (b, s, h, d)).astype(np.float32))
+            return a.to(DEVICE, dtype).transpose(1, 2)
+        return one(hq, sq), one(hkv, sk), one(hkv, sk)
+
+    # (name, shape, dtype, rel, abs): |got - want32| <= rel * |want32| + abs per element
+    cases = [("main_bf16", main_shape, torch.bfloat16, 2.0 ** -8, 1e-5),
+             ("main_f32", main_shape, torch.float32, 0.0, 1e-5)]
+    cases += [(f"f32_{'x'.join(map(str, sh[:6]))}{'' if sh[6] else '_noncausal'}",
+               sh, torch.float32, 0.0, 2e-5) for sh in FLASH_F32_SHAPES]
+    bad, err = 0, 0.0
+    for name, (b, hq, hkv, sq, sk, d, causal), dt, rel, atol in cases:
+        q, k, v = qkv(b, hq, hkv, sq, sk, d, dt)
+        got = attention(q, k, v, causal=causal).float()
+        want = attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        diff = (got - want).abs()
+        e = float(diff.max())
+        share = float((diff / (rel * want.abs() + atol)).max())
+        line = {"check": "flash_attention", "case": name, "dtype": str(dt).split(".")[-1],
+                "shape": [b, hq, hkv, sq, sk, d], "causal": causal, "max_abs_err": e,
+                "rel_tol": rel, "abs_tol": atol, "largest_share_of_tol": share}
+        ok = share <= 1.0
+        if dt == torch.bfloat16:
+            pe = float((got - attention_plain(q, k, v, causal=causal).float()).abs().max())
+            line["vs_bf16_plain"] = {"max_abs_err": pe, "tolerance": 3e-2}
+            ok = ok and pe <= 3e-2
+        emit(line)
+        bad += int(not ok)
+        err = max(err, e)
+        if name == "main_bf16":
+            main = (q, k, v)
+        del got, want, diff
+    q, k, v = main
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = float((sdpa(q, k, v, is_causal=True, enable_gqa=True).float()
+                     - attention_plain(q, k, v).float()).abs().max())
+    k_ms = cuda_ms(lambda: kernel.flash_attention(q, k, v, causal=True), iters=5, warmup=1)
+    p_ms = cuda_ms(lambda: attention_plain(q, k, v), iters=3, warmup=1)
+    l_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    b, hq, hkv, sq, sk, d, _ = main_shape
+    pairs = sq * (sq + 1) // 2                 # visible (row, col) pairs per head, Sq = Sk
+    flops = 2 * 2 * d * pairs * b * hq         # QK^T and P.V, a multiply and an add each
+    bytes_moved = 2 * (2 * q.numel() + k.numel() + v.numel())   # bf16 q, k, v read; o written
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, bytes_moved / HBM_BYTES_PER_S
+    return dict(name=LM_KERNELS[0], route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:82",
+                mismatches=bad, max_abs_err=err, ms=k_ms, plain_ms=p_ms, bytes=bytes_moved,
+                flops=flops, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=l_ms,
+                library_max_abs_err=lib_err, tflops=flops / k_ms / 1e9,
+                shape={"b": b, "hq": hq, "hkv": hkv, "s": sq, "d": d, "dtype": "bfloat16"})
+
+
 # ---------------------------------------------------------------- entry
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -489,6 +826,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as ak
     from repro_torch.kernels.fp_delta import kernel as fk
     from repro_torch.kernels.minmax import kernel as mk
 
@@ -496,16 +834,19 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     emit({"gpu": gpu})
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     _build.build_all(KERNEL_LIBS)
-    emit({"build_s": time.perf_counter() - t0})
-    counters = [fk.decode_stream, mk.segminmax_refine, mk.page_minmax]
-    names = ["fp_delta.decode_stream", "minmax.segminmax_refine", "minmax.page_minmax"]
+    emit({"build_s": time.perf_counter() - t_start})
+    counters = [fk.decode_stream, mk.segminmax_refine, mk.page_minmax, ak.flash_attention]
+    names = list(FILE_KERNELS + LM_KERNELS)
     for c, name in zip(counters, names):
         c.kname = name
     emit({"kernel_names": names})
+    reduced = {"lm": {"config": LM_CONFIG, "shape": "train_4k", "seq_len": LM_SEQ,
+                      "global_batch": [LM_FULL_BATCH, LM_BATCH]}}
     if args.n_traj != FULL_N_TRAJ:
-        emit({"reduced": {"n_traj": [FULL_N_TRAJ, args.n_traj]}})
+        reduced["n_traj"] = [FULL_N_TRAJ, args.n_traj]
+    emit({"reduced": reduced})
 
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -513,16 +854,27 @@ def main() -> int:
         main = main_path(args, path, counters)
         emit({"main_path": {k: v for k, v in main.items() if not k.startswith("_")}})
         table = check_kernels(path, main)
+    t0 = time.perf_counter()
+    lm = lm_path(args, counters)
+    lm["wall_s"] = time.perf_counter() - t0
+    emit({"lm_path": lm})
+    table.append(check_flash(args.seed))
+    launches = {**{n: main["launches"][n] for n in FILE_KERNELS},
+                **{n: lm["launches"][n] for n in LM_KERNELS}}
     for row in table:
         emit({"kernel": row["name"], "mismatches": row["mismatches"],
               "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
-              "library_ms": row["library_ms"], "launches": main["launches"][row["name"]],
+              "library_ms": row["library_ms"], "launches": launches[row["name"]],
               "shape": row["shape"], "bytes": row["bytes"]})
     for row in table:
         require(row["mismatches"] == 0, f"{row['name']}: kernel disagrees with its plain version")
+    flash = table[-1]
+    emit({"flash_attention_rate": {"tflops": flash["tflops"],
+                                   "sdpa_max_abs_err_vs_plain": flash["library_max_abs_err"]}})
+    emit({"total_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: (main["launches"][r["name"]] if k == "launches" else r[k])
+    emit({"kernels": [{k: (launches[r["name"]] if k == "launches" else r[k])
                        for k in keys} for r in table]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,193 @@
+"""GQA attention (+qk-norm) with explicit KV caches
+(``repro/models/attention.py``, its GQA half; MLA and cross-attention are
+not ported yet).
+
+The ``impl`` knob picks the plain einsum (``ref``), the online-softmax
+scan over KV blocks in plain torch (``blocked``) or the flash-attention
+kernel (``flash``: :func:`repro_torch.kernels.flash_attention.attention`,
+the CUDA kernel on a CUDA tensor). As in the reference, ``blocked`` and
+``flash`` run only where no per-query positions and no valid-length mask
+are given: the full forward and the full-capacity prefill. Every other
+cached call takes ``ref``.
+
+Unlike the reference's pure functions, cached calls write the new K/V into
+the cache tensors in place (the reference's ``dynamic_update_slice``
+returns a new array; here that copy would double the cache's memory) and
+return the same tensors as the new cache.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.flash_attention import attention as flash_attention_op
+from .layers import apply_rope, dense_init, rms_norm
+
+NEG_INF = -1e30
+
+
+def _sdpa_blocked(q, k, v, *, causal: bool, block_k: int = 1024):
+    """Online-softmax attention over KV blocks in plain torch: the (S, Sk)
+    logits are never materialised. q: (B,S,Hq,D), k/v: (B,Sk,Hkv,D)."""
+    b, s, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    group = hq // hkv
+    if sk % block_k:
+        block_k = math.gcd(sk, block_k) or sk
+    nb = sk // block_k
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, s, hkv, group, d)
+    rows = torch.arange(s, device=q.device)[:, None] + (sk - s)  # decode-aligned diagonal
+    m = torch.full((b, hkv, group, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, group, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, group, s, dv), dtype=torch.float32, device=q.device)
+    for bi in range(nb):
+        kblk = k[:, bi * block_k:(bi + 1) * block_k]
+        vblk = v[:, bi * block_k:(bi + 1) * block_k]
+        logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), kblk.float()) * scale
+        if causal:
+            cols = bi * block_k + torch.arange(block_k, device=q.device)[None, :]
+            logits = logits.masked_fill(~(cols <= rows), NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgst,bthd->bhgsd", p.to(vblk.dtype).float(), vblk.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dv).to(q.dtype)
+
+
+def _sdpa(q, k, v, *, causal: bool, q_pos=None, k_valid_len=None, impl: str = "ref"):
+    """q: (B,S,Hq,D), k/v: (B,Sk,Hkv,D) -> (B,S,Hq,D).
+
+    ``q_pos``: absolute positions of queries (for decode masking);
+    ``k_valid_len``: number of valid cache slots (a scalar, or (B,1,1) per
+    slot): keys beyond are masked out.
+    """
+    b, s, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if impl == "blocked" and k_valid_len is None and q_pos is None:
+        return _sdpa_blocked(q, k, v, causal=causal)
+    if impl == "flash" and k_valid_len is None and q_pos is None:
+        # (B,S,H,D) -> (B,H,S,D) views: the kernel takes the strides as they are
+        out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 causal=causal)
+        return out.transpose(1, 2)
+    group = hq // hkv
+    qg = q.reshape(b, s, hkv, group, d)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
+    logits = logits / math.sqrt(d)
+    rows = torch.arange(s, device=q.device)[:, None] if q_pos is None else q_pos[..., None]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    mask = None
+    if causal:
+        offset = 0 if q_pos is not None else (sk - s)
+        mask = cols <= rows + offset
+    if k_valid_len is not None:
+        kmask = cols < k_valid_len
+        mask = kmask if mask is None else (mask & kmask)
+    if mask is not None:
+        while mask.dim() < 3:   # -> (B|1, s|1, sk)
+            mask = mask[None]
+        mask = mask[:, None, None]  # (B|1, 1, 1, s|1, sk)
+        logits = logits.masked_fill_(~mask, NEG_INF)
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", p, v)
+    return out.reshape(b, s, hq, v.shape[-1])
+
+
+def _update_slots(cache_arr, new, pos):
+    """Per-slot cache write, in place: ``new[b]`` lands in ``cache_arr[b]``
+    at row offset ``pos[b]`` along axis 1 (continuous batching, where every
+    batch slot sits at its own decode position). Like the reference's
+    ``dynamic_update_slice``, an offset past the end is clamped so the
+    write fits."""
+    n, s = cache_arr.shape[1], new.shape[1]
+    start = pos.long().clamp(0, n - s)
+    rows = start[:, None] + torch.arange(s, device=pos.device)
+    slots = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    cache_arr[slots, rows] = new.to(cache_arr.dtype)
+    return cache_arr
+
+
+# ----------------------------------------------------------------------- GQA
+def init_gqa(gen, cfg, dtype, stack=()) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    s, ax = tuple(stack), len(stack)
+    p = {
+        "wq": dense_init(gen, (*s, d, hq * hd), ax, dtype=dtype),
+        "wk": dense_init(gen, (*s, d, hkv * hd), ax, dtype=dtype),
+        "wv": dense_init(gen, (*s, d, hkv * hd), ax, dtype=dtype),
+        "wo": dense_init(gen, (*s, hq * hd, d), ax, dtype=dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*s, hd), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones((*s, hd), dtype=dtype, device=gen.device)
+    return p
+
+
+def gqa_forward(cfg, p, x, positions, *, causal=True, cache=None, cache_pos=None,
+                use_rope=True):
+    """Full-sequence or cached attention.
+
+    cache: None, or dict {k: (B, Smax, Hkv, D), v: ...}; when given, the new
+    K/V are written at ``cache_pos`` (an int, or a (B,) tensor of per-slot
+    offsets) and attention runs over the cache. Returns (out, new_cache).
+    """
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, hq, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    new_cache = None
+    if cache is not None:
+        if torch.is_tensor(cache_pos) and cache_pos.dim() != 0:
+            # per-slot positions: each slot writes K/V at its own offset and
+            # masks its own valid length; positions must already be (B, S)
+            kc = _update_slots(cache["k"], k, cache_pos)
+            vc = _update_slots(cache["v"], v, cache_pos)
+            out = _sdpa(
+                q, kc.to(x.dtype), vc.to(x.dtype), causal=True,
+                q_pos=positions, k_valid_len=(cache_pos + s)[:, None, None],
+                impl="ref",
+            )
+            return out.reshape(b, s, hq * hd) @ p["wo"].to(x.dtype), {"k": kc, "v": vc}
+        pos0 = int(cache_pos)
+        smax = cache["k"].shape[1]
+        pos = min(max(pos0, 0), smax - s)   # dynamic_update_slice clamps the offset
+        kc, vc = cache["k"], cache["v"]
+        kc[:, pos:pos + s] = k.to(kc.dtype)
+        vc[:, pos:pos + s] = v.to(vc.dtype)
+        new_cache = {"k": kc, "v": vc}
+        if s == smax:
+            # full-capacity prefill (static condition): attention over the
+            # fresh K/V is equivalent and admits the blocked/flash impls
+            out = _sdpa(q, k, v, causal=True, impl=cfg.attn_impl)
+        else:
+            qpos = positions if positions.dim() else positions[None]
+            out = _sdpa(
+                q, kc.to(x.dtype), vc.to(x.dtype), causal=True,
+                q_pos=qpos, k_valid_len=pos0 + s, impl="ref",
+            )
+    else:
+        out = _sdpa(q, k, v, causal=causal, impl=cfg.attn_impl)
+    return out.reshape(b, s, hq * hd) @ p["wo"].to(x.dtype), new_cache
+
+
+def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, max_len, hkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, hkv, hd), dtype=dtype, device=device),
+    }

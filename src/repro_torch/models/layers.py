@@ -1,0 +1,85 @@
+"""Shared neural-net layers: norms, RoPE, SwiGLU MLP, initializers.
+
+Plain functions over dicts of tensors, as in the reference
+(``repro/models/layers.py``): weights keep its ``(d_in, d_out)`` layout and
+each use casts them to the activation dtype (``x @ W.to(x.dtype)``).
+Random initializers draw from an explicit :class:`torch.Generator`; the
+numbers differ from ``jax.random`` for the same seed, so tests that compare
+the two packages carry the reference's weights across
+(:mod:`repro_torch.models.convert`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+# ------------------------------------------------------------------- init
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0, scale: float = 1.0,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated-normal fan-in init on ``gen``'s device. ``shape`` may carry
+    leading stack axes (layers); ``in_axis`` names the fan-in axis."""
+    fan_in = shape[in_axis]
+    std = scale / float(fan_in) ** 0.5
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return w.normal_(0.0, 1.0, generator=gen).mul_(0.02).to(dtype)
+
+
+# ------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(dt)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
+    """positions: any shape -> (cos, sin) with trailing dim head_dim//2."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)   # float32, as jnp's weak-typed scalar power
+    ang = positions.float()[..., None] * freqs  # (..., half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,) or scalar. Half-split
+    rotation (not interleaved), f32 angles, as the reference."""
+    d = x.shape[-1]
+    cos, sin = rope_angles(positions, d, theta)  # (B, S, half) or (S, half)
+    while cos.dim() < x.dim() - 1:  # broadcast to (B, S, 1, half)
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- MLP
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, stack=()) -> dict:
+    s, ax = tuple(stack), len(stack)
+    return {
+        "w_gate": dense_init(gen, (*s, d_model, d_ff), ax, dtype=dtype),
+        "w_up": dense_init(gen, (*s, d_model, d_ff), ax, dtype=dtype),
+        "w_down": dense_init(gen, (*s, d_ff, d_model), ax, dtype=dtype),
+    }
+
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU feed-forward."""
+    h = torch.nn.functional.silu(x @ params["w_gate"].to(x.dtype)) \
+        * (x @ params["w_up"].to(x.dtype))
+    return h @ params["w_down"].to(x.dtype)

@@ -3,7 +3,8 @@
 These import only the port (no JAX), so they run on a machine with a card
 and no JAX: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Each test decides inside itself whether a card exists and skips without
-one. Inputs are made with numpy from a seed; tolerance: exact bit patterns.
+one. Inputs are made with numpy from a seed; tolerance: exact bit patterns,
+except for flash attention, whose tolerances are stated at its tests.
 """
 
 import numpy as np
@@ -117,3 +118,82 @@ def test_main_path_on_card_matches_host(card, tmp_path):
     counts1 = (fkernel.decode_stream.launches, mkernel.segminmax_refine.launches,
                mkernel.page_minmax.launches)
     assert all(c1 > c0 for c0, c1 in zip(counts0, counts1))
+
+
+# ---------------------------------------------------------- flash attention
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal", [
+    (2, 4, 4, 128, 128, True),
+    (1, 8, 2, 256, 256, True),     # GQA
+    (1, 4, 4, 128, 384, True),     # decode-aligned rectangular
+    (1, 2, 2, 1, 128, True),       # single-token decode
+    (1, 6, 3, 100, 256, True),     # ragged q, GQA
+    (2, 2, 2, 128, 128, False),    # non-causal
+])
+def test_flash_kernel_matches_plain(card, rng, dtype, tol, d, b, hq, hkv, sq, sk, causal):
+    """Tolerance: the reference's (2e-5 in float32 for sum order; 3e-2 in
+    bf16, where the plain version rounds P to bf16 before P.V). In bf16 that
+    3e-2 is about as large as a typical output, so each element is also
+    held to the float32 plain version on the same (bf16-valued) inputs: the
+    kernel computes in float32 and rounds once, so it must lie within half
+    a bf16 ulp (2^-8 relative) plus float32 sum-order noise (1e-5)."""
+    from repro_torch.kernels.flash_attention import attention, attention_plain, kernel
+
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, h, s, d)).astype(np.float32))
+               .to(card, dtype) for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n0 = kernel.flash_attention.launches
+    got = attention(q, k, v, causal=causal)
+    want = attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (b, hq, sq, d)
+    assert float((got.float() - want.float()).abs().max()) < tol
+    if dtype == torch.bfloat16:
+        want32 = attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        err = (got.float() - want32).abs()
+        assert bool((err <= 2.0 ** -8 * want32.abs() + 1e-5).all()), float(err.max())
+
+
+def test_flash_kernel_takes_strided_views(card, rng):
+    """(B, S, H, D) tensors go in as transposed views, as the model passes them."""
+    from repro_torch.kernels.flash_attention import attention, attention_plain
+
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, 256, h, 64)).astype(np.float32))
+               .to(card).transpose(1, 2) for h in (8, 2, 2))
+    got = attention(q, k, v)
+    want = attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    assert float((got - want).abs().max()) < 2e-5
+
+
+def test_flash_kernel_rejects_unsupported_head_dim(card):
+    from repro_torch.kernels.flash_attention import kernel
+
+    q = torch.zeros((1, 2, 128, 96), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        kernel.flash_attention(q, q, q)
+
+
+def test_lm_forward_on_card_launches_flash(card):
+    """A reduced dense model on the card: one flash launch per layer, and
+    logits close to the same model's plain attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dataclasses.replace(get_config("qwen3-8b").reduced(), n_kv_heads=2)
+    toks = np.random.default_rng(3).integers(0, base.vocab, (2, 256)).astype(np.int32)
+    params = build_model(base).init(0, device=card)
+    n0 = kernel.flash_attention.launches
+    flash, _, _ = build_model(dataclasses.replace(base, attn_impl="flash")).forward(
+        params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert kernel.flash_attention.launches == n0 + base.n_layers
+    plain, _, _ = build_model(dataclasses.replace(base, attn_impl="ref")).forward(
+        params, {"tokens": toks})
+    rel = float((flash - plain).abs().max() / plain.abs().max())
+    assert rel < 1e-4, rel

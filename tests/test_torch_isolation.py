@@ -2,7 +2,8 @@
 
 A subprocess blocks both imports (``sys.modules[...] = None`` makes any
 import of them raise), then imports the port, writes a file and reads it
-back on the CPU, and checks that the default device asks for a card.
+back on the CPU, builds a reduced dense LM on the CPU, runs its forward and
+serves two requests, and checks that the default device asks for a card.
 """
 
 import ast
@@ -47,6 +48,30 @@ with SpatialParquetReader(path) as r:
             assert "no CUDA device" in str(e)
         else:
             raise AssertionError("default device ran without a card")
+
+import dataclasses
+import repro_torch.kernels.flash_attention
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serve import BatchedServer
+
+cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), n_kv_heads=2, attn_impl="flash")
+model = build_model(cfg)
+params = model.init(0, device="cpu")
+logits, _, _ = model.forward(params, {"tokens": np.arange(256, dtype=np.int32).reshape(2, 128)})
+assert logits.shape == (2, 128, cfg.vocab) and bool(torch.isfinite(logits).all())
+srv = BatchedServer(cfg, params, max_batch=2, max_len=32)
+for n in (5, 9):
+    srv.submit(np.arange(3, 3 + n), max_new_tokens=4)
+served = srv.run()
+assert sorted(len(r.out_tokens) for r in served) == [4, 4]
+if not torch.cuda.is_available():
+    try:
+        model.init(0)
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e)
+    else:
+        raise AssertionError("model init on the default device ran without a card")
 assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 print("ISOLATED-OK", dev[2].records_returned)
 """
