@@ -45,6 +45,25 @@ Phases, each fatal on failure (nothing is caught):
    path's shape, and float32 at the reference's six test shapes (GQA,
    rectangular, single-token, ragged, non-causal).
 
+Between phases 3 and 4 run the two paths added after them:
+
+3a. the dataset path, with every launch count set to 0 just before:
+    ``write_dataset`` of the same Porto columns and extras into 16
+    Hilbert-partitioned shards on ``device="cuda"``, then five
+    ``SpatialDatasetScanner(max_workers=4).scan`` calls on ``"cuda"`` with
+    the file path's boxes, filter and ``keep_on_device``. Each scan is held
+    exactly against the numpy oracle in the dataset's record order (one
+    global Hilbert sort split 16 ways), and its ``ReadStats`` (shards and
+    pages read and total, records) against the oracle's own shard and page
+    layout. Kernels 1-3 must each launch;
+3b. the codec path, with every launch count set to 0 just before:
+    ``compress_array`` then ``decompress_array`` on the card of the Porto x
+    and y columns cast to float32, exact to the bit, with the compressed
+    size against the host paper-exact ``fp_delta_encode`` of the same
+    array. Then both codec kernels against their plain versions at that
+    shape and on adversarial blocks (see :func:`codec_blocks`), exact in
+    all six encode outputs and the decoded bits.
+
 Every line is one JSON object. The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
 table, printed just before the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -68,9 +87,13 @@ ROOT = Path(__file__).resolve().parent
 FULL_N_TRAJ = 1_710_670          # ECML/PKDD 2015 taxi-trajectory challenge trips
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak (data sheet)
-KERNEL_LIBS = ("fp_delta_decode", "segminmax_refine", "page_minmax", "flash_attention")
+KERNEL_LIBS = ("fp_delta_decode", "segminmax_refine", "page_minmax", "flash_attention",
+               "miniblock")
 FILE_KERNELS = ("fp_delta.decode_stream", "minmax.segminmax_refine", "minmax.page_minmax")
+CODEC_KERNELS = ("fp_delta.encode_blocks", "fp_delta.decode_blocks")
 LM_KERNELS = ("flash_attention.flash_attention",)
+DATASET_SHARDS = 16            # ~107 k trips, ~5 M points a shard: a typical lake file
+DATASET_WORKERS = 4
 LM_CONFIG = "qwen3-8b"
 LM_BATCH, LM_SEQ, LM_FULL_BATCH = 2, 4096, 256   # train_4k: seq 4096, global batch 256
 # Serving: prompts of 16-64 tokens (a tokenized trip prefix, as examples/serve_lm.py
@@ -224,7 +247,7 @@ def read_split(tracer, wall_s: float) -> dict:
 
 
 # ---------------------------------------------------------------- main path
-def main_path(args, path: Path, counters) -> dict:
+def main_path(data, path: Path, counters) -> dict:
     import torch
 
     from repro_torch import obs
@@ -232,9 +255,7 @@ def main_path(args, path: Path, counters) -> dict:
     from repro_torch.core.reader import SpatialParquetReader
     from repro_torch.core.writer import write_file
 
-    t0 = time.perf_counter()
-    cols, npts, extra, schema = make_data(args.n_traj, args.seed)
-    gen_s = time.perf_counter() - t0
+    cols, npts, extra, schema = data
     order = file_order(cols, 1 << 20)
     oracle = Oracle(cols, npts, extra, order)
     boxes = {f"refine_{int(t * 100)}pct": selectivity_bbox(oracle, t)
@@ -275,7 +296,7 @@ def main_path(args, path: Path, counters) -> dict:
     launches = {c.kname: c.launches for c in counters}
     for name in FILE_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the file path")
-    return {"gen_s": gen_s, "write_s": write_s, "file_bytes": path.stat().st_size,
+    return {"write_s": write_s, "file_bytes": path.stat().st_size,
             "n_records": int(cols.n_records), "n_points": int(cols.n_values),
             "reads": reads, "launches": launches,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -499,6 +520,275 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
                       bound_by="bytes", library_ms=l_ms,
                       shape={"values": len(dur), "pages": n_pages}))
     return table
+
+
+# ---------------------------------------------------------------- dataset path
+def dataset_order(cols) -> np.ndarray:
+    """Input record index of each record in dataset order: the writer sorts
+    all records once by the Hilbert key of their bbox centres (stable) and
+    splits that order into shards, concatenated in manifest order."""
+    from repro_torch.core.sfc import sort_keys
+    from repro_torch.core.writer import record_centroids
+
+    cx, cy = record_centroids(cols)
+    return np.argsort(sort_keys(cx, cy, "hilbert", 16), kind="stable")
+
+
+class DatasetOracle(Oracle):
+    """The file oracle in dataset order, plus the shard and page layout the
+    writer produces (``np.array_split`` into shards; pages of whole records
+    up to ``page_values`` values, a record larger than that alone), from
+    which the expected ``ReadStats`` of a bbox scan follow."""
+
+    def __init__(self, cols, npts, extra, order, n_shards: int, page_values: int):
+        super().__init__(cols, npts, extra, order)
+        sizes = [len(c) for c in np.array_split(np.arange(order.size), n_shards)]
+        self.shard_starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        counts = npts[order]
+        starts = []
+        for s0, size in zip(self.shard_starts, sizes):
+            ends = np.cumsum(counts[s0:s0 + size])   # value end of each record
+            r = 0
+            while r < size:
+                base = ends[r - 1] if r else 0
+                nxt = int(np.searchsorted(ends, base + page_values, side="right"))
+                nxt = min(max(nxt, r + 1), size)
+                starts.append(s0 + r)
+                r = nxt
+        self.page_starts = np.array(starts, np.int64)
+        self.page_shard = np.searchsorted(self.shard_starts, self.page_starts, side="right") - 1
+        self.dur = extra["duration_s"][order]
+
+    def stats(self, bbox, rng_filter=None) -> dict:
+        x0, y0, x1, y1 = bbox
+
+        def hits(starts):
+            red = lambda f, a: f.reduceat(a, starts)   # noqa: E731
+            k = ((red(np.minimum, self.xmin) <= x1) & (red(np.maximum, self.xmax) >= x0)
+                 & (red(np.minimum, self.ymin) <= y1) & (red(np.maximum, self.ymax) >= y0))
+            if rng_filter is not None:
+                _, lo, hi = rng_filter
+                k &= (red(np.maximum, self.dur) >= lo) & (red(np.minimum, self.dur) <= hi)
+            return k
+
+        shard_hit = hits(self.shard_starts)
+        pages = hits(self.page_starts) & shard_hit[self.page_shard]
+        return {"shards_total": int(shard_hit.size), "shards_read": int(shard_hit.sum()),
+                "pages_total": int(self.page_starts.size), "pages_read": int(pages.sum())}
+
+
+def scan_split(tracer, wall_s: float) -> dict:
+    """Seconds of one traced scan: its wall time, and the per-shard spans
+    summed over the worker threads (so the split adds up to the summed shard
+    time, not to the wall): host plan, H2D, device, D2H (as read_split)."""
+    tot = {r["name"]: r["total_ms"] / 1e3 for r in tracer.summary()}
+    h2d = tot.get("device.h2d", 0.0)
+    dev = tot.get("device.decode_launch", 0.0) + tot.get("device.refine_launch", 0.0)
+    d2h = tot.get("device.gather", 0.0)
+    shards = tot.get("shard", 0.0)
+    return {"wall_s": wall_s, "shard_thread_s": shards, "host_plan_thread_s": shards - h2d - dev - d2h,
+            "h2d_thread_s": h2d, "device_thread_s": dev, "d2h_thread_s": d2h}
+
+
+def dataset_path(data, root: Path, main: dict, counters) -> dict:
+    """Phase 3a: the sharded dataset tier over the same Porto columns."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.filters import Range
+    from repro_torch.dataset import SpatialDatasetScanner, write_dataset
+
+    cols, npts, extra, schema = data
+    oracle = DatasetOracle(cols, npts, extra, dataset_order(cols), DATASET_SHARDS, 131072)
+    boxes = main["_boxes"]
+    rng_filter = ("duration_s", 300.0, 900.0)
+
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    manifest = write_dataset(root, columns=cols, extra=extra, n_shards=DATASET_SHARDS,
+                             sort="hilbert", device=DEVICE)
+    write_s = time.perf_counter() - t0
+    require(manifest.extra_schema == schema, f"manifest extra schema {manifest.extra_schema}")
+    require(manifest.n_shards == DATASET_SHARDS, f"{manifest.n_shards} shards written")
+    scanner = SpatialDatasetScanner(root, max_workers=DATASET_WORKERS)
+    b10 = boxes["refine_10pct"]
+    plan = [(name, dict(bbox=b, refine=True), None) for name, b in boxes.items()]
+    plan.append(("refine_10pct_filter", dict(bbox=b10, refine=True, filter=Range(*rng_filter)),
+                 rng_filter))
+    plan.append(("refine_10pct_keep_on_device", dict(bbox=b10, refine=True, keep_on_device=True),
+                 None))
+    scans = {}
+    for name, kw, flt in plan:
+        tracer = obs.enable()
+        t0 = time.perf_counter()
+        res = scanner.scan(device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        obs.disable()
+        if kw.get("keep_on_device"):
+            require(res[0].x.bits.device.type == torch.device(DEVICE).type,
+                    f"{name}: coordinates left the device")
+        n = oracle.check(res, oracle.keep(kw["bbox"], flt), f"dataset {name}")
+        st = res[2]
+        want = oracle.stats(kw["bbox"], flt)
+        got = {k: getattr(st, k) for k in want}
+        require(got == want, f"dataset {name}: ReadStats {got}, oracle {want}")
+        require(not st.failures, f"dataset {name}: failed shards {st.failures}")
+        scans[name] = {**scan_split(tracer, wall), "records": n,
+                       "selectivity": n / oracle.order.size, **got,
+                       "bytes_read": st.bytes_read, "bytes_total": st.bytes_total}
+    launches = {c.kname: c.launches for c in counters}
+    for name in FILE_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the dataset path")
+    return {"write_s": write_s, "shards": manifest.n_shards,
+            "shard_records": [s.n_records for s in manifest.shards],
+            "dataset_bytes": sum(s.file_bytes for s in manifest.shards),
+            "scans": scans, "launches": launches}
+
+
+# ---------------------------------------------------------------- codec path
+def codec_path(cols, counters) -> dict:
+    """Phase 3b: ``compress_array``/``decompress_array`` of the Porto x and
+    y columns as float32 (the reference bench's ``x32``) on the card."""
+    import torch
+
+    from repro_torch.core.fp_delta import fp_delta_encode
+    from repro_torch.kernels.fp_delta import compress_array, decompress_array
+
+    arrays = {"x32": cols.x.astype(np.float32), "y32": cols.y.astype(np.float32)}
+    out = {}
+    for c in counters:
+        c.launches = 0
+    for name, a in arrays.items():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        buf = compress_array(a, device=DEVICE)
+        ev[1].record()
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev[2].record()
+        back = decompress_array(buf, a.shape, np.float32, device=DEVICE)
+        ev[3].record()
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        require(back.dtype == np.float32 and back.shape == a.shape, f"codec {name}: {back.dtype} {back.shape}")
+        require(np.array_equal(back.view(np.int32), a.view(np.int32)), f"codec {name}: bits differ")
+        out[name] = {"values": int(a.size), "raw_bytes": int(a.nbytes), "compressed_bytes": len(buf),
+                     "ratio": a.nbytes / len(buf), "compress_wall_s": enc_s,
+                     "decompress_wall_s": dec_s, "compress_events_ms": ev[0].elapsed_time(ev[1]),
+                     "decompress_events_ms": ev[2].elapsed_time(ev[3])}
+    launches = {c.kname: c.launches for c in counters}
+    for name in CODEC_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the codec path")
+    for name, a in arrays.items():
+        t0 = time.perf_counter()
+        exact, _ = fp_delta_encode(a)
+        mini = out[name]["compressed_bytes"] - 16        # FPD2 header: magic, n_values, n_blocks
+        out[name].update(exact_bytes=len(exact), exact_encode_s=time.perf_counter() - t0,
+                         miniblock_vs_exact_penalty_pct=100.0 * (mini / len(exact) - 1.0))
+    return {"arrays": out, "launches": launches, "_x32": arrays["x32"]}
+
+
+def codec_blocks(rng) -> list[tuple[str, np.ndarray, tuple | None]]:
+    """Adversarial miniblocks as uint32 patterns (n, 1024), each with the
+    (width, exception count) it must encode to, or None."""
+    import torch
+
+    from repro_torch.kernels.fp_delta.ops import _pad_to_blocks
+    from repro_torch.kernels.fp_delta.ref import WIDTHS
+
+    def from_zig(z):
+        z = np.asarray(z, np.uint32).copy()
+        z[0] = 0
+        d = (z >> np.uint32(1)) ^ (np.uint32(0) - (z & np.uint32(1)))
+        return np.uint32(0x42240000) + np.cumsum(d, dtype=np.uint32)
+
+    def bits(lo, hi, n):
+        return rng.integers(lo, hi, n, dtype=np.uint64).astype(np.uint32)
+
+    cases = [("random_int32", rng.integers(0, 2 ** 32, (4, 1024), dtype=np.uint64)
+              .astype(np.uint32), (32, 0)),
+             ("constant", np.full((1, 1024), np.float32(2.5)).view(np.uint32), (0, 0))]
+    for w in WIDTHS:
+        cases.append((f"width_{w}", from_zig(bits(1 << (w - 1), 1 << w, 1024))[None], (w, 0)))
+    for k, want in ((64, (4, 64)), (65, (20, 0))):
+        z = bits(8, 16, 1024)
+        z[rng.choice(np.arange(1, 1024), k, replace=False)] = bits(1 << 19, 1 << 20, k)
+        cases.append((f"outliers_{k}", from_zig(z)[None], want))
+    z = np.ones(1024, np.uint32)            # cost(1) = 1024 + 48*64 = cost(4): keeps 1
+    z[rng.choice(np.arange(1, 1024), 64, replace=False)] = bits(8, 16, 64)
+    cases.append(("cost_tie", from_zig(z)[None], (1, 64)))
+    sp = (np.cumsum(rng.normal(0, 1e-4, 2048)) + 41.1).astype(np.float32).view(np.uint32)
+    specials = np.array([0x7FC00001, 0xFFA00005, 0x7F800001, 0x7F800000, 0xFF800000, 0x0,
+                         0x80000000, 0x1, 0x80000001, 0x007FFFFF], np.uint32)
+    sp[rng.integers(0, sp.size, 40)] = specials[rng.integers(0, specials.size, 40)]
+    cases.append(("nan_inf_zero_denormal", sp.reshape(2, 1024), None))
+    ragged = (np.cumsum(rng.normal(0, 1e-3, 3 * 1024 + 333)) - 8.6).astype(np.float32)
+    cases.append(("ragged_last_block",
+                  _pad_to_blocks(torch.from_numpy(ragged))[0].numpy().view(np.uint32), None))
+    return cases
+
+
+def check_codec(codec: dict) -> list[dict]:
+    """Both codec kernels against their plain versions at the codec path's
+    shape and on :func:`codec_blocks`; exact equality, then times."""
+    import torch
+
+    from repro_torch.kernels.fp_delta import kernel as fk, ref as fr
+    from repro_torch.kernels.fp_delta.ops import _pad_to_blocks
+
+    main_blocks = _pad_to_blocks(torch.from_numpy(codec["_x32"]).to(DEVICE))[0]
+    cases = [("main_x32", main_blocks, None)]
+    cases += [(n, torch.from_numpy(b.view(np.float32)).to(DEVICE), want)
+              for n, b, want in codec_blocks(np.random.default_rng(11))]
+    bad_e = bad_d = 0
+    err_e = err_d = 0.0
+    for name, blocks, want in cases:
+        ko = fk.encode_blocks(blocks)
+        po = fr.encode_blocks_ref(blocks)
+        kd = fk.decode_blocks(*ko)
+        pd = fr.decode_blocks_ref(*ko)
+        torch.cuda.synchronize()
+        me_all = [mismatches(a, b) for a, b in zip(ko, po)]
+        md_all = [mismatches(kd, pd), mismatches(kd, blocks)]
+        me, md = sum(m for m, _ in me_all), sum(m for m, _ in md_all)
+        err_e = max([err_e] + [e for _, e in me_all])
+        err_d = max([err_d] + [e for _, e in md_all])
+        line = {"check": "fp_delta.miniblock", "case": name, "blocks": int(blocks.shape[0]),
+                "encode_mismatches": me, "decode_mismatches": md}
+        if blocks.shape[0] <= 4:
+            line["widths"] = ko[1].tolist()
+            line["exc_count"] = ko[5].tolist()
+        if want is not None:
+            got = (int(ko[1][0]), int(ko[5][0]))
+            require(got == want, f"miniblock {name}: (width, exceptions) {got}, designed {want}")
+        emit(line)
+        bad_e, bad_d = bad_e + me, bad_d + md
+    n = int(main_blocks.shape[0])
+    enc = fk.encode_blocks(main_blocks)
+    widths, counts = enc[1].to(torch.int64), enc[5].to(torch.int64)
+    e_ms = cuda_ms(lambda: fk.encode_blocks(main_blocks))
+    ep_ms = cuda_ms(lambda: fr.encode_blocks_ref(main_blocks), iters=3, warmup=1)
+    d_ms = cuda_ms(lambda: fk.decode_blocks(*enc))
+    dp_ms = cuda_ms(lambda: fr.decode_blocks_ref(*enc), iters=3, warmup=1)
+    # encode: 4 B a value in; packed words, three int32 scalars and 2 x 64 slots out
+    e_bytes = n * (4096 + 4096 + 12 + 2 * 64 * 4)
+    # decode: valid payload words, live exception slots and the scalars in; 4 B a value out
+    d_bytes = int(widths.sum()) * 32 * 4 + int(counts.sum()) * 8 + n * 12 + n * 4096
+    shape = {"blocks": n, "values": n * 1024, "mean_width": float(widths.double().mean()),
+             "exceptions": int(counts.sum())}
+    row = dict(route="cuda", source="src/repro_torch/csrc/miniblock.cu", library_ms=None,
+               bound_by="bytes", shape=shape)
+    return [dict(row, name=CODEC_KERNELS[0], replaces="src/repro/kernels/fp_delta/kernel.py:102",
+                 mismatches=bad_e, max_abs_err=err_e, ms=e_ms,
+                 plain_ms=ep_ms, bytes=e_bytes, bound_ms=e_bytes / HBM_BYTES_PER_S * 1e3),
+            dict(row, name=CODEC_KERNELS[1], replaces="src/repro/kernels/fp_delta/kernel.py:233",
+                 mismatches=bad_d, max_abs_err=err_d, ms=d_ms,
+                 plain_ms=dp_ms, bytes=d_bytes, bound_ms=d_bytes / HBM_BYTES_PER_S * 1e3)]
 
 
 # ---------------------------------------------------------------- LM path
@@ -837,8 +1127,9 @@ def main() -> int:
     t_start = time.perf_counter()
     _build.build_all(KERNEL_LIBS)
     emit({"build_s": time.perf_counter() - t_start})
-    counters = [fk.decode_stream, mk.segminmax_refine, mk.page_minmax, ak.flash_attention]
-    names = list(FILE_KERNELS + LM_KERNELS)
+    counters = [fk.decode_stream, mk.segminmax_refine, mk.page_minmax, fk.encode_blocks,
+                fk.decode_blocks, ak.flash_attention]
+    names = list(FILE_KERNELS + CODEC_KERNELS + LM_KERNELS)
     for c, name in zip(counters, names):
         c.kname = name
     emit({"kernel_names": names})
@@ -849,17 +1140,33 @@ def main() -> int:
     emit({"reduced": reduced})
 
     (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    data = make_data(args.n_traj, args.seed)
+    emit({"gen_s": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         path = Path(tmp) / "porto_taxi.spqf"
-        main = main_path(args, path, counters)
+        main = main_path(data, path, counters)
         emit({"main_path": {k: v for k, v in main.items() if not k.startswith("_")}})
         table = check_kernels(path, main)
+        t0 = time.perf_counter()
+        ds = dataset_path(data, Path(tmp) / "porto_lake", main, counters)
+        ds["wall_s"] = time.perf_counter() - t0
+        emit({"dataset_path": ds})
+    t0 = time.perf_counter()
+    codec = codec_path(data[0], counters)
+    codec["wall_s"] = time.perf_counter() - t0
+    emit({"codec_path": {k: v for k, v in codec.items() if not k.startswith("_")}})
+    table += check_codec(codec)
+    codec_launches = codec["launches"]
+    del data, codec
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     lm = lm_path(args, counters)
     lm["wall_s"] = time.perf_counter() - t0
     emit({"lm_path": lm})
     table.append(check_flash(args.seed))
     launches = {**{n: main["launches"][n] for n in FILE_KERNELS},
+                **{n: codec_launches[n] for n in CODEC_KERNELS},
                 **{n: lm["launches"][n] for n in LM_KERNELS}}
     for row in table:
         emit({"kernel": row["name"], "mismatches": row["mismatches"],

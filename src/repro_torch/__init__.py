@@ -4,7 +4,8 @@ The file format, writer and reader are the reference's; the device path
 runs on hand-written CUDA kernels (``repro_torch/csrc``) on an NVIDIA
 Hopper card. Entry points run on the card (``device="cuda"``) unless the
 caller asks for the CPU (``device="cpu"``: the same torch chain with each
-kernel's plain version) or, for reads, the numpy path (``device="host"``)::
+kernel's plain version) or, for reads and dataset scans, the numpy path
+(``device="host"``)::
 
     from repro_torch import write_file, SpatialParquetReader
 

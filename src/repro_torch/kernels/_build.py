@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -97,3 +98,13 @@ def check(lib: ctypes.CDLL, prefix: str, err: int, what: str) -> None:
         fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {err}: {fn(err).decode()}")
+
+
+def bump(fn) -> None:
+    """Add one to ``fn.launches``, the launch count of a kernel wrapper.
+
+    Wrappers are called from worker threads (the dataset scanner reads
+    shards in a thread pool), where ``fn.launches += 1`` could lose counts.
+    """
+    with _count_lock:
+        fn.launches += 1

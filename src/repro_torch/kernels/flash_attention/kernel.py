@@ -3,7 +3,7 @@
 The wrapper checks device, dtype, shape and layout, allocates the output
 with ``torch.empty``, launches on the current stream, raises on a CUDA
 error, and counts its launches in a plain integer attribute
-(``flash_attention.launches``). The plain version is
+(``flash_attention.launches``, bumped under a lock by ``_build.bump``). The plain version is
 :func:`.ref.attention_ref`.
 """
 
@@ -70,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              d, b, hq, hkv, sq, sk, *strides, float(sm_scale), int(bool(causal)),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "fa", err, "flash_attention launch")
-    flash_attention.launches += 1
+    _build.bump(flash_attention)
     return out
 
 

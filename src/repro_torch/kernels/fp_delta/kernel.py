@@ -1,9 +1,10 @@
-"""Wrapper of the page-stream decode CUDA kernel (``csrc/fp_delta_decode.cu``).
+"""Wrappers of the FP-delta CUDA kernels: the page-stream decode
+(``csrc/fp_delta_decode.cu``) and the miniblock codec (``csrc/miniblock.cu``).
 
-The wrapper checks device, dtype, shape and contiguity, allocates the output
-and the per-block scratch with ``torch.empty``, launches on the current
-stream, raises on a CUDA error, and counts launches in ``decode_stream.launches``.
-The plain version is :func:`.ref.decode_stream_ref`.
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs (and scratch) with ``torch.empty``, launches on the current stream,
+raises on a CUDA error, and counts its launches in ``<wrapper>.launches``
+(:func:`.._build.bump`). The plain versions are in :mod:`.ref`.
 """
 
 from __future__ import annotations
@@ -13,9 +14,24 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import STREAM_BLOCK
+from .ref import MAX_EXC, MINIBLOCK, STREAM_BLOCK
 
 _P = ctypes.c_void_p
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev: torch.device, shape) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def decode_stream(words32, tok_off, nbits, anchor, width: int) -> torch.Tensor:
@@ -36,16 +52,9 @@ def decode_stream(words32, tok_off, nbits, anchor, width: int) -> torch.Tensor:
     shape = tok_off.shape
     if len(shape) != 2 or shape[1] != STREAM_BLOCK:
         raise ValueError(f"tok_off must be (n_blocks, {STREAM_BLOCK}), got {tuple(shape)}")
-    for t, name in ((words32, "words32"), (tok_off, "tok_off"),
-                    (nbits, "nbits"), (anchor, "anchor")):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if name != "words32" and t.shape != shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != tok_off shape {tuple(shape)}")
+    _check(words32, "words32", torch.int32, dev, words32.shape)
+    for t, name in ((tok_off, "tok_off"), (nbits, "nbits"), (anchor, "anchor")):
+        _check(t, name, torch.int32, dev, shape)
     n_blocks = shape[0]
     out = torch.empty(n_blocks * STREAM_BLOCK,
                       dtype=torch.int32 if width == 32 else torch.int64, device=dev)
@@ -58,11 +67,83 @@ def decode_stream(words32, tok_off, nbits, anchor, width: int) -> torch.Tensor:
     fn.restype = ctypes.c_int
     err = fn(words32.data_ptr(), tok_off.data_ptr(), nbits.data_ptr(),
              anchor.data_ptr(), n_blocks, width, sum_v.data_ptr(),
-             sum_f.data_ptr(), carry.data_ptr(), out.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+             sum_f.data_ptr(), carry.data_ptr(), out.data_ptr(), _stream(dev))
     _build.check(lib, "fpd", err, "decode_stream launch")
-    decode_stream.launches += 1
+    _build.bump(decode_stream)
     return out
 
 
 decode_stream.launches = 0
+
+
+def encode_blocks(x: torch.Tensor):
+    """Miniblock encode on the card.
+
+    ``x``: (n_blocks, MINIBLOCK) float32, contiguous, 16-byte aligned.
+    Returns int32 ``(packed (n, MINIBLOCK), widths (n,), anchors (n,),
+    exc_idx (n, MAX_EXC), exc_val (n, MAX_EXC), exc_count (n,))``, equal to
+    :func:`.ref.encode_blocks_ref` on every input.
+    """
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError("encode_blocks kernel needs CUDA tensors")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n_blocks, {MINIBLOCK}), got {tuple(x.shape)}")
+    n = x.shape[0]
+    _check(x, "x", torch.float32, dev, (n, MINIBLOCK))
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} blocks exceed the grid's 2^31 - 1")
+    i32 = dict(dtype=torch.int32, device=dev)
+    outs = (torch.empty((n, MINIBLOCK), **i32), torch.empty(n, **i32), torch.empty(n, **i32),
+            torch.empty((n, MAX_EXC), **i32), torch.empty((n, MAX_EXC), **i32),
+            torch.empty(n, **i32))
+    lib = _build.load("miniblock")
+    fn = lib.mb_encode_blocks
+    fn.argtypes = [_P, ctypes.c_int] + [_P] * 7
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), n, *(t.data_ptr() for t in outs), _stream(dev))
+    _build.check(lib, "mb", err, "encode_blocks launch")
+    _build.bump(encode_blocks)
+    return outs
+
+
+encode_blocks.launches = 0
+
+
+def decode_blocks(packed, widths, anchors, exc_idx, exc_val, exc_count) -> torch.Tensor:
+    """Miniblock decode on the card -> (n_blocks, MINIBLOCK) float32.
+
+    Takes the six int32 arrays of :func:`encode_blocks`. Contract: on every
+    stream that :func:`encode_blocks` (or :func:`.ref.encode_blocks_ref`)
+    produces, the result equals :func:`.ref.decode_blocks_ref` bit for bit.
+    Exception slots are assumed to hold distinct positions, as encode
+    writes them; for duplicates the plain version sums the values (as the
+    reference does) while the kernel keeps one of them.
+    """
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError("decode_blocks kernel needs CUDA tensors")
+    if packed.dim() != 2:
+        raise ValueError(f"packed must be (n_blocks, {MINIBLOCK}), got {tuple(packed.shape)}")
+    n = packed.shape[0]
+    for t, name, shape in ((packed, "packed", (n, MINIBLOCK)), (widths, "widths", (n,)),
+                           (anchors, "anchors", (n,)), (exc_idx, "exc_idx", (n, MAX_EXC)),
+                           (exc_val, "exc_val", (n, MAX_EXC)), (exc_count, "exc_count", (n,))):
+        _check(t, name, torch.int32, dev, shape)
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} blocks exceed the grid's 2^31 - 1")
+    out = torch.empty((n, MINIBLOCK), dtype=torch.float32, device=dev)
+    lib = _build.load("miniblock")
+    fn = lib.mb_decode_blocks
+    fn.argtypes = [_P] * 6 + [ctypes.c_int, _P, _P]
+    fn.restype = ctypes.c_int
+    err = fn(packed.data_ptr(), widths.data_ptr(), anchors.data_ptr(), exc_idx.data_ptr(),
+             exc_val.data_ptr(), exc_count.data_ptr(), n, out.data_ptr(), _stream(dev))
+    _build.check(lib, "mb", err, "decode_blocks launch")
+    _build.bump(decode_blocks)
+    return out
+
+
+decode_blocks.launches = 0

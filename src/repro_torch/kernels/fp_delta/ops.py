@@ -1,6 +1,14 @@
-"""Page-stream decode, fused decode→refine, and survivor gather.
+"""The miniblock codec; page-stream decode, fused decode→refine, and
+survivor gather.
 
-Batched device execution of host-resolved ``FPDeltaPlan``s (the
+Miniblock codec (:func:`encode`, :func:`decode`, :func:`to_bytes`,
+:func:`from_bytes`, :func:`compress_array`, :func:`decompress_array`):
+lossless 32-bit compression of arbitrary-length float32/int32 arrays in
+self-contained blocks of ``MINIBLOCK`` values (format in :mod:`.ref`). The
+input is padded with its last element (zero deltas cost nothing); the dense
+device stream compacts on the host into the ``FPD2`` byte format.
+
+Page stream: batched device execution of host-resolved ``FPDeltaPlan``s (the
 paper-exact page format of :mod:`repro_torch.core.fp_delta`), consumed by
 ``SpatialParquetReader.read_columnar``. The host has done the sequential
 part — escape resolution — so many pages concatenate into one flat value
@@ -19,6 +27,7 @@ tensors: CUDA tensors launch the kernels, CPU tensors run the plain versions.
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,8 +40,146 @@ from repro_torch.core.fp_delta import HEADER_BITS, FPDeltaPlan, fp_delta_execute
 from repro_torch.kernels.minmax import bbox_query_keys, keys64, segminmax_refine
 
 from . import kernel, ref
-from .ref import STREAM_BLOCK
+from .ref import MAX_EXC, MINIBLOCK, STREAM_BLOCK
 
+_MAGIC = b"FPD2"  # FP-Delta Miniblock v2 (patched)
+
+# ------------------------------------------------------------ miniblock codec
+@dataclass
+class MiniblockStream:
+    """Encoded stream as tensors on one device (dense, pre-compaction)."""
+
+    packed: torch.Tensor     # (n_blocks, MINIBLOCK) int32, first w*32 words valid
+    widths: torch.Tensor     # (n_blocks,) int32 in {0} | WIDTHS
+    anchors: torch.Tensor    # (n_blocks,) int32
+    exc_idx: torch.Tensor    # (n_blocks, MAX_EXC) int32
+    exc_val: torch.Tensor    # (n_blocks, MAX_EXC) int32 (raw zigzag)
+    exc_count: torch.Tensor  # (n_blocks,) int32
+    n_values: int            # unpadded element count
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.packed.shape[0])
+
+    def compact_bits(self) -> int:
+        """Size of the compacted stream in bits."""
+        return ref.stream_size_bits(self.widths, self.exc_count)
+
+
+def _pad_to_blocks(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Flatten, view int32 as float32, pad with the last element to whole
+    blocks; an empty input becomes one zero block."""
+    x = x.reshape(-1)
+    if x.dtype == torch.int32:
+        x = x.view(torch.float32)
+    if x.dtype != torch.float32:
+        raise TypeError(f"miniblock codec is 32-bit only, got {x.dtype}")
+    n = x.shape[0]
+    padded = -(-n // MINIBLOCK) * MINIBLOCK
+    if padded == 0:
+        padded = MINIBLOCK
+        x = torch.zeros(MINIBLOCK, dtype=torch.float32, device=x.device)
+    elif padded != n:
+        x = torch.cat([x, x[-1:].expand(padded - n)])
+    return x.reshape(-1, MINIBLOCK).contiguous(), n
+
+
+def encode(x, *, device="cuda") -> MiniblockStream:
+    """Encode a float32/int32 array (numpy or tensor, any shape) on
+    ``device``: the kernel on ``"cuda"``, the plain version on ``"cpu"``."""
+    dev = torch_device(device)
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    blocks, n = _pad_to_blocks(x.to(dev))
+    if dev.type == "cuda":
+        return MiniblockStream(*kernel.encode_blocks(blocks), n)
+    return MiniblockStream(*ref.encode_blocks_ref(blocks), n)
+
+
+def decode(stream: MiniblockStream, *, out_dtype=torch.float32) -> torch.Tensor:
+    """Decode on the stream's device -> the (n_values,) float32 tensor, or
+    its int32 bit patterns for ``out_dtype=torch.int32``."""
+    args = (stream.packed, stream.widths, stream.anchors,
+            stream.exc_idx, stream.exc_val, stream.exc_count)
+    if stream.packed.device.type == "cuda":
+        x = kernel.decode_blocks(*args)
+    else:
+        x = ref.decode_blocks_ref(*args)
+    flat = x.reshape(-1)[: stream.n_values]
+    if out_dtype == torch.int32:
+        return flat.view(torch.int32)
+    return flat
+
+
+def to_bytes(stream: MiniblockStream) -> bytes:
+    """Compact the dense stream into contiguous ``FPD2`` bytes (host side)."""
+    packed = stream.packed.cpu().numpy()
+    widths = stream.widths.cpu().numpy().astype(np.uint8)
+    anchors = stream.anchors.cpu().numpy()
+    counts = stream.exc_count.cpu().numpy().astype(np.uint8)
+    exc_idx = stream.exc_idx.cpu().numpy().astype(np.uint16)
+    exc_val = stream.exc_val.cpu().numpy().astype("<i4")
+    n_blocks = len(widths)
+    valid = (widths.astype(np.int64) * MINIBLOCK) // 32
+    mask = np.arange(MINIBLOCK)[None, :] < valid[:, None]
+    payload = packed[mask]  # row-major → block order preserved
+    emask = np.arange(MAX_EXC)[None, :] < counts[:, None].astype(np.int64)
+    head = _MAGIC + struct.pack("<QI", stream.n_values, n_blocks)
+    return (head + widths.tobytes() + counts.tobytes()
+            + anchors.astype("<i4").tobytes()
+            + exc_idx[emask].astype("<u2").tobytes() + exc_val[emask].tobytes()
+            + payload.astype("<i4").tobytes())
+
+
+def from_bytes(buf: bytes, *, device="cuda") -> MiniblockStream:
+    """Parse ``FPD2`` bytes into a dense stream on ``device``."""
+    dev = torch_device(device)
+    if buf[:4] != _MAGIC:
+        raise ValueError("not an FPD2 stream")
+    n_values, n_blocks = struct.unpack_from("<QI", buf, 4)
+    off = 4 + 12
+    widths = np.frombuffer(buf, np.uint8, n_blocks, off).astype(np.int32)
+    off += n_blocks
+    counts = np.frombuffer(buf, np.uint8, n_blocks, off).astype(np.int32)
+    off += n_blocks
+    anchors = np.frombuffer(buf, "<i4", n_blocks, off).astype(np.int32)
+    off += 4 * n_blocks
+    n_exc = int(counts.sum())
+    eidx = np.frombuffer(buf, "<u2", n_exc, off)
+    off += 2 * n_exc
+    eval_ = np.frombuffer(buf, "<i4", n_exc, off)
+    off += 4 * n_exc
+    valid = (widths.astype(np.int64) * MINIBLOCK) // 32
+    payload = np.frombuffer(buf, "<i4", int(valid.sum()), off)
+    packed = np.zeros((n_blocks, MINIBLOCK), np.int32)
+    packed[np.arange(MINIBLOCK)[None, :] < valid[:, None]] = payload
+    exc_idx = np.zeros((n_blocks, MAX_EXC), np.int32)
+    exc_val = np.zeros((n_blocks, MAX_EXC), np.int32)
+    emask = np.arange(MAX_EXC)[None, :] < counts[:, None]
+    exc_idx[emask] = eidx
+    exc_val[emask] = eval_
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    return MiniblockStream(put(packed), put(widths), put(anchors), put(exc_idx),
+                           put(exc_val), put(counts), n_values)
+
+
+def compress_array(x, *, device="cuda") -> bytes:
+    """One-shot lossless compression of a float32/int32 array (any shape)."""
+    return to_bytes(encode(x, device=device))
+
+
+def decompress_array(buf: bytes, shape, dtype=np.float32, *, device="cuda") -> np.ndarray:
+    """Inverse of :func:`compress_array`: a numpy array of ``shape``/``dtype``."""
+    want_i32 = np.dtype(dtype) == np.int32
+    flat = decode(from_bytes(buf, device=device),
+                  out_dtype=torch.int32 if want_i32 else torch.float32)
+    return flat.cpu().numpy().reshape(shape).view(dtype)
+
+
+# ------------------------------------------------------------ page stream
 # Per-launch cap on packed payload bits. Token offsets are int32 bit
 # addresses, so a launch must stay under 2^31 bits; 2^30 keeps that with a
 # margin and still holds tens of millions of values (one launch covers a

@@ -4,8 +4,8 @@
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises on a
 CUDA error, and counts its launches in a plain integer attribute
-(``page_minmax.launches``) so a run can show that it went through the
-kernel. The plain versions are in :mod:`.ref`.
+(``page_minmax.launches``, bumped under a lock by ``_build.bump``) so a run
+can show that it went through the kernel. The plain versions are in :mod:`.ref`.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def page_minmax(values: torch.Tensor, bounds: torch.Tensor):
     err = fn(values.data_ptr(), bounds.data_ptr(), n_pages,
              out_min.data_ptr(), out_max.data_ptr(), _stream(dev))
     _build.check(lib, "pmm", err, "page_minmax launch")
-    page_minmax.launches += 1
+    _build.bump(page_minmax)
     return out_min, out_max
 
 
@@ -97,7 +97,7 @@ def segminmax_refine(bits, x_start, y_start, counts, valid, qkeys, width: int):
              counts.data_ptr(), valid.data_ptr(), n, qx0, qx1, qy0, qy1,
              keep.data_ptr(), mm.data_ptr(), _stream(dev))
     _build.check(lib, "smm", err, "segminmax_refine launch")
-    segminmax_refine.launches += 1
+    _build.bump(segminmax_refine)
     return keep, mm
 
 

@@ -5,7 +5,7 @@ One switch controls the whole subsystem::
     from repro_torch import obs
 
     tracer = obs.enable()                       # fresh tracer + registry
-    geo, extras, stats = scanner.scan(bbox=b, refine=True, device="jax")
+    geo, extras, stats = scanner.scan(bbox=b, refine=True, device="cuda")
     obs.disable()
     tracer.export("scan_trace.json", metrics=obs.snapshot())
 

@@ -1,0 +1,223 @@
+"""The port's miniblock codec held against the JAX package's.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+reference encodes with its jnp oracle (``use_pallas=False``) and with its
+Pallas kernels in interpret mode (``use_pallas=True``); the port encodes
+with its plain version on CPU tensors (``device="cpu"``). Tolerance: exact,
+in all six dense arrays, the ``FPD2`` bytes, and the decoded bit patterns.
+The CUDA kernels are held against this plain version in
+``tests/test_torch_cuda.py``.
+"""
+
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from repro.kernels import fp_delta as jfd  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import fp_delta as tfd  # noqa: E402
+from repro_torch.kernels.fp_delta import ref as tref  # noqa: E402
+
+FIELDS = ("packed", "widths", "anchors", "exc_idx", "exc_val", "exc_count")
+
+
+def _gen(rng, gen, n):
+    """The reference's test inputs (tests/test_kernels.py)."""
+    if gen == "smooth":
+        return (np.cumsum(rng.normal(0, 1e-4, n)) + 41).astype(np.float32)
+    if gen == "random":
+        return rng.integers(-2**31, 2**31 - 1, n).astype(np.int32).view(np.float32)
+    if gen == "constant":
+        return np.full(n, 2.5, np.float32)
+    x = (np.cumsum(rng.normal(0, 1e-4, n)) + 41).astype(np.float32)
+    x[:: max(n // 7, 1)] = rng.normal(0, 1e6, len(x[:: max(n // 7, 1)]))
+    return x
+
+
+def _from_zig(z, anchor=0x42240000):
+    """uint32 patterns of a block whose zigzag deltas are ``z`` (z[0] := 0)."""
+    z = np.asarray(z, np.uint32).copy()
+    z[0] = 0
+    d = (z >> np.uint32(1)) ^ (np.uint32(0) - (z & np.uint32(1)))
+    return np.uint32(anchor) + np.cumsum(d, dtype=np.uint32)
+
+
+def _bits(rng, lo, hi, n):
+    return rng.integers(lo, hi, n, dtype=np.uint64).astype(np.uint32)
+
+
+def _outliers(rng, k):
+    """4-bit zigzag deltas with ``k`` 20-bit outliers."""
+    z = _bits(rng, 8, 16, 1024)
+    z[rng.choice(np.arange(1, 1024), k, replace=False)] = _bits(rng, 1 << 19, 1 << 20, k)
+    return _from_zig(z).view(np.float32)
+
+
+def _tie(rng):
+    """cost(w=1) = 1024 + 48 * 64 = cost(w=4): the smaller width wins."""
+    z = np.ones(1024, np.uint32)
+    z[rng.choice(np.arange(1, 1024), 64, replace=False)] = _bits(rng, 8, 16, 64)
+    return _from_zig(z).view(np.float32)
+
+
+def _specials(rng, n=3000):
+    x = (np.cumsum(rng.normal(0, 1e-4, n)) + 41.1).astype(np.float32).view(np.uint32)
+    pool = np.array([0x7FC00001, 0xFFA00005, 0x7F800001, 0x7F800000, 0xFF800000, 0x0,
+                     0x80000000, 0x1, 0x80000001, 0x007FFFFF], np.uint32)
+    x[rng.integers(0, n, 60)] = pool[rng.integers(0, pool.size, 60)]
+    return x.view(np.float32)
+
+
+def _assert_same_stream(js, ts):
+    for f in FIELDS:
+        a = np.asarray(getattr(js, f))
+        b = getattr(ts, f).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert np.array_equal(a, b), f
+    assert js.n_values == ts.n_values
+
+
+def _check_against_reference(x, *, pallas=True):
+    """Encode in both packages, compare streams and bytes, decode across."""
+    want_dtype = np.int32 if np.asarray(x).dtype == np.int32 else np.float32
+    ts = tfd.encode(x, device="cpu")
+    jr = jfd.encode(x, use_pallas=False)
+    _assert_same_stream(jr, ts)
+    if pallas:
+        _assert_same_stream(jfd.encode(x, use_pallas=True), ts)
+    buf = tfd.to_bytes(ts)
+    assert buf == jfd.to_bytes(jr)
+    assert ts.compact_bits() == jr.compact_bits()
+    flat = np.asarray(x).reshape(-1).view(np.int32)
+    assert np.array_equal(tfd.decode(ts, out_dtype=torch.int32).numpy(), flat)
+    assert np.array_equal(tfd.decompress_array(buf, np.shape(x), want_dtype, device="cpu")
+                          .view(np.int32).reshape(-1), flat)
+    # the reference decodes the port's bytes and the port the reference's
+    assert np.array_equal(np.asarray(jfd.decode(jfd.from_bytes(buf), use_pallas=False))
+                          .view(np.int32), flat.view(np.float32).view(np.int32))
+    back = tfd.from_bytes(jfd.compress_array(x), device="cpu")
+    _assert_same_stream(jr, back)
+    return ts
+
+
+@pytest.mark.parametrize("gen", ["smooth", "random", "constant", "mixed"])
+@pytest.mark.parametrize("n", [1, 1000, 1024, 4096, 5000])
+def test_codec_matches_reference(rng, gen, n):
+    _check_against_reference(_gen(rng, gen, n))
+
+
+@pytest.mark.parametrize("case", ["outliers_64", "outliers_65", "cost_tie", "specials",
+                                  "int32", "ragged"])
+def test_codec_adversarial_matches_reference(rng, case):
+    x = {"outliers_64": lambda: _outliers(rng, 64),
+         "outliers_65": lambda: _outliers(rng, 65),
+         "cost_tie": lambda: _tie(rng),
+         "specials": lambda: _specials(rng),
+         "int32": lambda: rng.integers(-5000, 5000, 3000).astype(np.int32),
+         "ragged": lambda: (np.cumsum(rng.normal(0, 1e-3, 3 * 1024 + 333)) - 8.6)
+         .astype(np.float32).reshape(3, -1)}[case]()
+    ts = _check_against_reference(x)
+    want = {"outliers_64": (4, 64), "outliers_65": (20, 0), "cost_tie": (1, 64)}.get(case)
+    if want is not None:
+        assert (int(ts.widths[0]), int(ts.exc_count[0])) == want
+
+
+def test_codec_empty_input_matches_reference():
+    x = np.zeros(0, np.float32)
+    ts = _check_against_reference(x)
+    assert ts.n_blocks == 1 and ts.n_values == 0 and int(ts.widths[0]) == 0
+    assert tfd.decompress_array(tfd.compress_array(x, device="cpu"), (0,),
+                                device="cpu").shape == (0,)
+
+
+def test_codec_rejects_other_dtypes():
+    for x in (np.zeros(8, np.float64), np.zeros(8, np.int16), torch.zeros(8, dtype=torch.int64)):
+        with pytest.raises(TypeError, match="32-bit"):
+            tfd.encode(x, device="cpu")
+
+
+@pytest.mark.parametrize("w", (0,) + tref.WIDTHS)
+def test_every_width_packs_like_reference(rng, w):
+    """A block whose zigzag deltas all have exactly w bits encodes at width
+    w, with the reference's packed words; decode restores it."""
+    if w == 0:
+        x = np.full(1024, np.float32(-3.25))
+    else:
+        x = _from_zig(_bits(rng, 1 << (w - 1), 1 << w, 1024)).view(np.float32)
+    ts = _check_against_reference(x, pallas=w in (0, 3, 10, 32))
+    assert int(ts.widths[0]) == w and int(ts.exc_count[0]) == 0
+    assert int(tref.payload_words(ts.widths)[0]) == 32 * w
+    assert not ts.packed[0, 32 * w:].any()
+
+
+def test_width_law_and_exceptions(rng):
+    """The reference's width-law and exception-path cases."""
+    x = np.zeros((1, 1024), np.float32)
+    xi = x.view(np.int32)
+    xi[0, 1:] = np.arange(1023) % 3          # deltas {1, 1, -2}: zigzag max 3 -> w = 2
+    outs = tref.encode_blocks_ref(torch.from_numpy(x))
+    assert int(outs[1][0]) == 2
+    xi[0, 1] = 300                           # one 11-bit outlier: an exception, w stays 2
+    outs = tref.encode_blocks_ref(torch.from_numpy(x))
+    assert int(outs[1][0]) == 2 and int(outs[5][0]) >= 1
+    _check_against_reference(x)
+    y = (np.cumsum(rng.normal(0, 1e-4, 1024)) + 40).astype(np.float32)
+    y[100] = -1e30
+    y[500] = np.float32(np.inf)
+    ts = _check_against_reference(y)
+    assert int(ts.widths[0]) < 32 and int(ts.exc_count[0]) >= 2
+
+
+def test_decode_plain_matches_reference_on_duplicate_slots(rng):
+    """Outside encode's contract: duplicate live exception positions sum,
+    and a width outside the format unpacks as zeros, as in the reference."""
+    s = tfd.encode(_specials(rng, 2048), device="cpu")
+    args = [t.clone() for t in (s.packed, s.widths, s.anchors, s.exc_idx, s.exc_val, s.exc_count)]
+    args[3][0, :3] = 17
+    args[4][0, :3] = torch.tensor([5, 9, -2], dtype=torch.int32)
+    args[5][0] = 3
+    args[1][1] = 5
+    from repro.kernels.fp_delta.ref import decode_blocks_ref as jdec
+    want = np.asarray(jax.jit(jdec)(*[a.numpy() for a in args])).view(np.int32)
+    got = tref.decode_blocks_ref(*args).view(torch.int32).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_stream_size_bits_matches_reference(rng):
+    from repro.kernels.fp_delta import ref as jref
+
+    widths = rng.choice(np.array((0,) + tref.WIDTHS, np.int32), 50)
+    counts = rng.integers(0, 65, 50).astype(np.int32)
+    assert tref.stream_size_bits(torch.from_numpy(widths), torch.from_numpy(counts)) == int(
+        jref.stream_size_bits(widths, counts))
+
+
+def test_launch_counter_is_thread_safe():
+    """8 threads x 10,000 bumps of one wrapper's counter count exactly,
+    with the interpreter switching threads as often as it can."""
+    def fn():
+        pass
+
+    fn.launches = 0
+
+    def work():
+        for _ in range(10_000):
+            _build.bump(fn)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert fn.launches == 80_000

@@ -120,6 +120,73 @@ def test_main_path_on_card_matches_host(card, tmp_path):
     assert all(c1 > c0 for c0, c1 in zip(counts0, counts1))
 
 
+# ---------------------------------------------------------- miniblock codec
+def _codec_blocks(rng):
+    """(n, 1024) uint32 blocks: smooth with outliers, random patterns, a
+    constant block, and one block landing on each packing width."""
+    smooth = (np.cumsum(rng.normal(0, 1e-4, 8 * 1024)) + 41).astype(np.float32)
+    smooth[rng.integers(0, smooth.size, 300)] = rng.normal(0, 1e30, 300).astype(np.float32)
+    blocks = [smooth.view(np.uint32).reshape(-1, 1024),
+              rng.integers(0, 2 ** 32, (3, 1024), dtype=np.uint64).astype(np.uint32),
+              np.full((1, 1024), np.float32(2.5)).view(np.uint32)]
+    for w in fref.WIDTHS:
+        z = rng.integers(1 << (w - 1), 1 << w, 1024, dtype=np.uint64).astype(np.uint32)
+        z[0] = 0
+        d = (z >> np.uint32(1)) ^ (np.uint32(0) - (z & np.uint32(1)))
+        blocks.append((np.uint32(7) + np.cumsum(d, dtype=np.uint32))[None])
+    return np.concatenate(blocks)
+
+
+def test_miniblock_kernels_match_plain(card, rng):
+    x = torch.from_numpy(_codec_blocks(rng).view(np.float32)).to(card)
+    n0 = (fkernel.encode_blocks.launches, fkernel.decode_blocks.launches)
+    got = fkernel.encode_blocks(x)
+    want = fref.encode_blocks_ref(x)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert sorted(set(got[1].tolist())) == [0, *fref.WIDTHS]
+    back = fkernel.decode_blocks(*got)
+    assert torch.equal(back.view(torch.int32), fref.decode_blocks_ref(*got).view(torch.int32))
+    assert torch.equal(back.view(torch.int32), x.view(torch.int32))
+    assert (fkernel.encode_blocks.launches, fkernel.decode_blocks.launches) == (n0[0] + 1,
+                                                                                 n0[1] + 1)
+
+
+def test_codec_round_trip_on_card(card, rng):
+    x = (np.cumsum(rng.normal(0, 1e-3, 50_000)) - 8.6).astype(np.float32).reshape(50, -1)
+    buf = tfd.compress_array(x)
+    assert buf == tfd.compress_array(x, device="cpu")
+    y = tfd.decompress_array(buf, x.shape)
+    assert np.array_equal(y.view(np.int32), x.view(np.int32))
+
+
+def test_dataset_scan_on_card_matches_host(card, tmp_path):
+    """write_dataset + scans on the card equal the numpy path, and go
+    through kernels 1-3."""
+    from repro_torch.core.filters import Range
+    from repro_torch.dataset import SpatialDatasetScanner, write_dataset
+
+    cols = porto_taxi_like(n_traj=3000)
+    extra = {"d": np.linspace(0, 900, cols.n_records).astype(np.float32)}
+    counts0 = (fkernel.decode_stream.launches, mkernel.segminmax_refine.launches,
+               mkernel.page_minmax.launches)
+    write_dataset(tmp_path / "lake", columns=cols, extra=extra, n_shards=4, page_values=4096)
+    sc = SpatialDatasetScanner(tmp_path / "lake", max_workers=4)
+    bbox = (-8.7, 41.1, -8.6, 41.2)
+    for kw in (dict(bbox=bbox, refine=True), dict(bbox=bbox, refine=True, filter=Range("d", 100, 500)),
+               dict(bbox=bbox, refine=True, keep_on_device=True)):
+        got = sc.scan(**kw)
+        want = sc.scan(device="host", **{k: v for k, v in kw.items() if k != "keep_on_device"})
+        assert got[2].records_returned == want[2].records_returned > 0
+        g = got[0].coords_to_host()
+        assert np.array_equal(g.x.view(np.int64), want[0].x.view(np.int64))
+        assert np.array_equal(g.y.view(np.int64), want[0].y.view(np.int64))
+        assert np.array_equal(got[1]["d"].view(np.int32), want[1]["d"].view(np.int32))
+    counts1 = (fkernel.decode_stream.launches, mkernel.segminmax_refine.launches,
+               mkernel.page_minmax.launches)
+    assert all(c1 > c0 for c0, c1 in zip(counts0, counts1))
+
+
 # ---------------------------------------------------------- flash attention
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("d", [32, 64, 128])

@@ -2,8 +2,10 @@
 
 A subprocess blocks both imports (``sys.modules[...] = None`` makes any
 import of them raise), then imports the port, writes a file and reads it
-back on the CPU, builds a reduced dense LM on the CPU, runs its forward and
-serves two requests, and checks that the default device asks for a card.
+back on the CPU, round-trips an array through the miniblock codec, writes a
+sharded dataset and scans it, builds a reduced dense LM on the CPU, runs its
+forward and serves two requests, and checks that every entry point's
+default device asks for a card.
 """
 
 import ast
@@ -49,6 +51,36 @@ with SpatialParquetReader(path) as r:
         else:
             raise AssertionError("default device ran without a card")
 
+from repro_torch.dataset import Catalog, Compactor, SpatialDatasetScanner, write_dataset
+from repro_torch.kernels.fp_delta import compress_array, decompress_array, encode
+
+x = (np.cumsum(np.random.default_rng(0).normal(0, 1e-3, 5000)) - 8.6).astype(np.float32)
+buf = compress_array(x, device="cpu")
+assert np.array_equal(decompress_array(buf, x.shape, device="cpu").view(np.int32), x.view(np.int32))
+lake = sys.argv[2]
+write_dataset(lake, columns=cols, extra=extra, sort="hilbert", n_shards=3, page_values=512,
+              device="cpu")
+sc = SpatialDatasetScanner(lake)
+scans = [sc.scan(bbox=bbox, refine=True, device=d, filter=Range("d", 10.0, 90.0))
+         for d in ("cpu", "host")]
+for g, e, s in scans:
+    assert s.records_returned == dev[2].records_returned and s.shards_total == 3
+    assert np.array_equal(g.x.view(np.int64), dev[0].x.view(np.int64))
+if not torch.cuda.is_available():
+    for call in (lambda: encode(x), lambda: compress_array(x),
+                 lambda: decompress_array(buf, x.shape),
+                 lambda: write_dataset(lake + "-2", columns=cols, n_shards=2),
+                 lambda: sc.scan(bbox=bbox, refine=True),
+                 lambda: Compactor(Catalog.open(lake))):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("an entry point ran on its default device without a card")
+    import os
+    assert not os.path.exists(lake + "-2")
+
 import dataclasses
 import repro_torch.kernels.flash_attention
 from repro_torch.configs import get_config
@@ -79,7 +111,8 @@ print("ISOLATED-OK", dev[2].records_returned)
 
 def test_port_runs_with_jax_and_repro_blocked(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path / "iso.spqf")],
+    out = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path / "iso.spqf"),
+                          str(tmp_path / "lake")],
                          capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "ISOLATED-OK" in out.stdout
