@@ -1,16 +1,16 @@
-// Blocked online-softmax attention (forward), for Hopper (sm_90a).
+// Blocked online-softmax attention (forward) in float32 on CUDA cores, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention
-// (the LM stack's attention when a config selects attn_impl="flash").
+// for float32 inputs; bf16 inputs go to flash_attention_sm90.cu.
 //
 // What it computes. For each batch b and query head h (reading kv head
 // h / group, jnp.repeat's order), logits = (q . k^T) * sm_scale in float32;
 // when causal, key col c is visible to query row r iff c <= r + (Sk - Sq)
 // (the decode-aligned diagonal) and a hidden logit is -1e30, not -inf. Key
 // tiles wholly above the diagonal are skipped. The running max, denominator
-// and accumulator are float32; the output is acc / max(l, 1e-30) rounded to
-// the input dtype (float32 or bf16, round-to-nearest-even). Any Sq and Sk:
+// and accumulator are float32; the output is acc / max(l, 1e-30). Any Sq and Sk:
 // rows past Sq are not stored and keys past Sk get weight 0. A causal row
 // that sees no key at all (r < Sq - Sk) comes out, as in the TPU kernel,
 // by its tile schedule: 0 where every tile is skipped, else a uniform mean.
@@ -18,8 +18,8 @@
 // What bounds it on the H100. Causal attention at the LM path's shape does
 // about 2 * 2 * Sq * Sk * D / 2 multiply-adds per head against a few bytes
 // per element of q, k, v and o: it is bound by operations. The reference
-// computes in float32, so this first version does too, on CUDA cores
-// (67 TFLOP/s peak), not on tensor cores.
+// computes in float32, so this kernel does too, on CUDA cores (67 TFLOP/s
+// peak), not on tensor cores.
 //
 // What the design does about that. One block per (64-row query tile, b*Hq
 // head); a loop over 64-key tiles up to the causal limit stages K^T and V
@@ -30,10 +30,8 @@
 // are warp shuffles across the 16 threads of a row. P reuses the K^T
 // buffer. Query tiles run longest-first to even out the causal load.
 // Base offsets are 64-bit (B*H*S*D passes 2^31 at long prefill shapes).
-// Making it fast (bf16 wgmma, TMA, a pipelined ring of tiles) is later work.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -47,28 +45,16 @@ struct Strides {
   long long b, h, s;  // element strides; the head dim is contiguous
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr int smem_floats() {
   // sQ (kBQ x (D+4)) + sKT/sP (max(D, kBQ) x (kBK+1)) + sV (kBK x D)
   return kBQ * (D + 4) + (D > kBQ ? D : kBQ) * (kBK + 1) + kBK * D;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int hq,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          float* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int hq,
           int group, int seq_q, int seq_k, float sm_scale, int causal) {
   constexpr int QS = D + 4;     // padded rows: the two row groups of a warp hit other banks
   constexpr int KTS = kBK + 1;  // padded K^T / P rows: conflict-free transposed stores
@@ -89,15 +75,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int tx = tid & 15;
   const int ty = tid >> 4;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
-  T* ob = o + b * so.b + h * so.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int row = q0 + r;
-    sQ[r * QS + d] = row < seq_q ? to_f32(qb[row * sq.s + d]) : 0.f;
+    sQ[r * QS + d] = row < seq_q ? qb[row * sq.s + d] : 0.f;
   }
 
   float acc[4][NC];
@@ -125,8 +111,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const int c = i / D, d = i % D;
       const int col = k0 + c;
       const bool ok = col < seq_k;
-      sKT[d * KTS + c] = ok ? to_f32(kb[col * sk.s + d]) : 0.f;
-      sV[c * D + d] = ok ? to_f32(vb[col * sv.s + d]) : 0.f;
+      sKT[d * KTS + c] = ok ? kb[col * sk.s + d] : 0.f;
+      sV[c * D + d] = ok ? vb[col * sv.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -210,40 +196,39 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     if (row >= seq_q) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) ob[row * so.s + tx + 16 * j] = from_f32<T>(acc[i][j] / den);
+    for (int j = 0; j < NC; ++j) ob[row * so.s + tx + 16 * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, Strides sq, Strides sk,
            Strides sv, Strides so, int batch, int hq, int hkv, int seq_q, int seq_k,
            float sm_scale, int causal, cudaStream_t st) {
   constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto kern = flash_fwd<T, D>;
+  auto kern = flash_fwd<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq_q + kBQ - 1) / kBQ, batch * hq);
-  kern<<<grid, kThreads, bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                      static_cast<const T*>(v), static_cast<T*>(o), sq, sk,
-                                      sv, so, hq, hq / hkv, seq_q, seq_k, sm_scale, causal);
+  kern<<<grid, kThreads, bytes, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                      static_cast<const float*>(v), static_cast<float*>(o), sq,
+                                      sk, sv, so, hq, hq / hkv, seq_q, seq_k, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v, void* o, Strides sq,
                Strides sk, Strides sv, Strides so, int batch, int hq, int hkv, int seq_q,
                int seq_k, float sm_scale, int causal, cudaStream_t st) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q, seq_k,
-                           sm_scale, causal, st);
+      return launch<32>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q, seq_k,
+                        sm_scale, causal, st);
     case 64:
-      return launch<T, 64>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q, seq_k,
-                           sm_scale, causal, st);
+      return launch<64>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q, seq_k,
+                        sm_scale, causal, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q, seq_k,
-                            sm_scale, causal, st);
+      return launch<128>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q, seq_k,
+                         sm_scale, causal, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -254,9 +239,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* o, Stri
 extern "C" {
 
 // q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), o: (B, Hq, Sq, D), each given by
-// its (batch, head, row) element strides with a contiguous head dim.
-// dtype 0 = float32, 1 = bf16; d in {32, 64, 128}. Returns a cudaError_t.
-int fa_forward(const void* q, const void* k, const void* v, void* o, int dtype, int d,
+// its (batch, head, row) element strides with a contiguous head dim, all
+// float32; d in {32, 64, 128}. Returns a cudaError_t.
+int fa_forward(const void* q, const void* k, const void* v, void* o, int d,
                int batch, int hq, int hkv, int seq_q, int seq_k, long long q_sb,
                long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
                long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
@@ -265,13 +250,8 @@ int fa_forward(const void* q, const void* k, const void* v, void* o, int dtype, 
   if (seq_q <= 0 || batch <= 0 || hq <= 0) return static_cast<int>(cudaGetLastError());
   const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss}, sv{v_sb, v_sh, v_ss},
       so{o_sb, o_sh, o_ss};
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q, seq_k,
-                             sm_scale, causal, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q,
-                                     seq_k, sm_scale, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_d(d, q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq_q, seq_k, sm_scale,
+                    causal, st);
 }
 
 const char* fa_error_string(int err) {

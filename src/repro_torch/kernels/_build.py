@@ -22,10 +22,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+logs: dict[str, str] = {}   # nvcc's output (ptxas registers, spills) of each source built here
 _count_lock = threading.Lock()
 
 
@@ -65,6 +66,7 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
+    logs[name] = log.decode(errors="replace")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 

@@ -1,9 +1,16 @@
-"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the two flash-attention CUDA kernels.
 
-The wrapper checks device, dtype, shape and layout, allocates the output
-with ``torch.empty``, launches on the current stream, raises on a CUDA
-error, and counts its launches in a plain integer attribute
-(``flash_attention.launches``, bumped under a lock by ``_build.bump``). The plain version is
+- bf16 goes to :func:`flash_attention_sm90` (``csrc/flash_attention_sm90.cu``:
+  ``wgmma`` on the tensor cores, fed by TMA through a ring of K/V tiles);
+- float32 goes to :func:`flash_attention_f32` (``csrc/flash_attention.cu``:
+  float32 on CUDA cores, the 1e-5 yardstick).
+
+:func:`flash_attention` picks the route by dtype; there is no fallback
+from one kernel to the other. Each wrapper checks its arguments, allocates
+the output with ``torch.empty``, launches on the current stream, raises on
+a CUDA error, and counts its launches in a plain integer attribute
+(``flash_attention_sm90.launches``, ``flash_attention_f32.launches``,
+bumped under a lock by ``_build.bump``). The plain version is
 :func:`.ref.attention_ref`.
 """
 
@@ -18,19 +25,11 @@ from .. import _build
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 HEAD_DIMS = (32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
-    """Blocked online-softmax attention on the card.
-
-    ``q``: (B, Hq, Sq, D); ``k``, ``v``: (B, Hkv, Sk, D), Hq a multiple of
-    Hkv (query head ``h`` reads kv head ``h // (Hq/Hkv)``). Any strides
-    with a contiguous head dim, so a (B, S, H, D) tensor's transposed view
-    goes in without a copy. float32 or bf16, D in 32, 64, 128. Returns a
-    contiguous (B, Hq, Sq, D) tensor in q's dtype.
-    """
+def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Check what both kernels take; returns (B, Hq, Hkv, Sq, Sk, D)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("flash_attention kernel needs CUDA tensors")
@@ -57,21 +56,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} must have a contiguous head dim")
     if b * hq > 65535:
         raise ValueError(f"B*Hq = {b * hq} exceeds the grid's 65535")
+    return b, hq, hkv, sq, sk, d
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
+    """Blocked online-softmax attention on the card.
+
+    ``q``: (B, Hq, Sq, D); ``k``, ``v``: (B, Hkv, Sk, D), Hq a multiple of
+    Hkv (query head ``h`` reads kv head ``h // (Hq/Hkv)``). Any strides
+    with a contiguous head dim, so a (B, S, H, D) tensor's transposed view
+    goes in without a copy. float32 or bf16, D in 32, 64, 128. Returns a
+    contiguous (B, Hq, Sq, D) tensor in q's dtype. bf16 launches the
+    ``wgmma`` kernel, float32 the CUDA-core kernel.
+    """
+    fn = flash_attention_sm90 if q.dtype == torch.bfloat16 else flash_attention_f32
+    return fn(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
+    """The CUDA-core kernel (``csrc/flash_attention.cu``), float32 only."""
+    b, hq, hkv, sq, sk, d = _shapes(q, k, v)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the CUDA-core kernel takes float32, got {q.dtype}")
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention")
     fn = lib.fa_forward
-    fn.argtypes = [_P, _P, _P, _P] + [ctypes.c_int] * 7 + [_LL] * 12 + [
+    fn.argtypes = [_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_LL] * 12 + [
         ctypes.c_float, ctypes.c_int, _P]
     fn.restype = ctypes.c_int
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-             d, b, hq, hkv, sq, sk, *strides, float(sm_scale), int(bool(causal)),
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d, b, hq, hkv, sq, sk,
+             *strides, float(sm_scale), int(bool(causal)),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "fa", err, "flash_attention launch")
-    _build.bump(flash_attention)
+    _build.bump(flash_attention_f32)
     return out
 
 
-flash_attention.launches = 0
+def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
+    """The Hopper kernel (``csrc/flash_attention_sm90.cu``), bf16 only.
+
+    TMA reads q, k and v through tensor maps, so each base must be 16-byte
+    aligned and each batch, head and row stride a multiple of 8 elements
+    (any stride of a dimension of extent 1 is ignored).
+    """
+    b, hq, hkv, sq, sk, d = _shapes(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the sm90 kernel takes bfloat16, got {q.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for TMA")
+        if any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1):
+            raise ValueError(f"{name}'s batch, head and row strides {t.stride()[:3]} "
+                             "must be multiples of 8 elements for TMA")
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    lib = _build.load("flash_attention_sm90")
+    fn = lib.fa90_forward
+    fn.argtypes = [_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_LL] * 9 + [
+        ctypes.c_float, ctypes.c_int, _P]
+    fn.restype = ctypes.c_int
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d, b, hq, hkv, sq, sk,
+             *strides, float(sm_scale), int(bool(causal)),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "fa90", err, "flash_attention_sm90 launch")
+    _build.bump(flash_attention_sm90)
+    return out
+
+
+flash_attention_f32.launches = 0
+flash_attention_sm90.launches = 0

@@ -188,6 +188,34 @@ def test_dataset_scan_on_card_matches_host(card, tmp_path):
 
 
 # ---------------------------------------------------------- flash attention
+def _within_bf16_bound(got, q, k, v, causal):
+    """Hold a bf16 output to the float32 plain version on the same
+    (bf16-valued) inputs, element by element:
+
+        |got - want32| <= 2^-8 |want32| + (2^-8 + 2^-15) A + 1e-5,
+
+    A = the plain version's softmax-weighted mean of |v|. The sm90 kernel
+    rounds P to bf16 before P.V (as the reference's oracle and SDPA's flash
+    backend do), which moves each term by at most u = 2^-8 of itself and the
+    sum by at most u * A; the output's one rounding adds u * |want32|;
+    2^-15 * A covers the second-order terms and 1e-5 float32 sum order.
+    ``tests/test_torch_flash_attention.py`` holds an emulation of this
+    rounding to the same bound."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    want = attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    a = attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)
+    err = (got.float() - want).abs()
+    tol = 2.0 ** -8 * want.abs() + (2.0 ** -8 + 2.0 ** -15) * a + 1e-5
+    return bool((err <= tol).all()), float((err / tol).max())
+
+
+def _launches():
+    from repro_torch.kernels.flash_attention import kernel
+
+    return kernel.flash_attention_sm90.launches, kernel.flash_attention_f32.launches
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,causal", [
@@ -202,25 +230,89 @@ def test_flash_kernel_matches_plain(card, rng, dtype, tol, d, b, hq, hkv, sq, sk
     """Tolerance: the reference's (2e-5 in float32 for sum order; 3e-2 in
     bf16, where the plain version rounds P to bf16 before P.V). In bf16 that
     3e-2 is about as large as a typical output, so each element is also
-    held to the float32 plain version on the same (bf16-valued) inputs: the
-    kernel computes in float32 and rounds once, so it must lie within half
-    a bf16 ulp (2^-8 relative) plus float32 sum-order noise (1e-5)."""
-    from repro_torch.kernels.flash_attention import attention, attention_plain, kernel
+    held to the float32 plain version by :func:`_within_bf16_bound`. bf16
+    goes through the sm90 kernel, float32 through the CUDA-core one."""
+    from repro_torch.kernels.flash_attention import attention, attention_plain
 
     q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, h, s, d)).astype(np.float32))
                .to(card, dtype) for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
     torch.backends.cuda.matmul.allow_tf32 = False
-    n0 = kernel.flash_attention.launches
+    n0 = _launches()
     got = attention(q, k, v, causal=causal)
     want = attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert kernel.flash_attention.launches == n0 + 1
+    bf16 = dtype == torch.bfloat16
+    assert _launches() == (n0[0] + bf16, n0[1] + (not bf16))
     assert got.dtype == dtype and got.shape == (b, hq, sq, d)
     assert float((got.float() - want.float()).abs().max()) < tol
-    if dtype == torch.bfloat16:
-        want32 = attention_plain(q.float(), k.float(), v.float(), causal=causal)
-        err = (got.float() - want32).abs()
-        assert bool((err <= 2.0 ** -8 * want32.abs() + 1e-5).all()), float(err.max())
+    if bf16:
+        ok, share = _within_bf16_bound(got, q, k, v, causal)
+        assert ok, share
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal,layout", [
+    (1, 2, 2, 1024, 1024, True, "bhsd"),    # eight key tiles: four rounds of the ring
+    (1, 2, 2, 2048, 2048, True, "bhsd"),    # sixteen key tiles, sixteen query tiles
+    (1, 32, 8, 1024, 1024, True, "bsh"),    # qwen3-8b's GQA 32/8, as the model passes views
+    (1, 2, 2, 1000, 1024, True, "bhsd"),    # ragged q: the first query tile starts at -24
+    (1, 2, 2, 1024, 1024, False, "bhsd"),   # non-causal: no diagonal tile
+    (2, 8, 2, 512, 512, True, "bsh"),       # strided (B, S, H, D) views
+])
+def test_sm90_kernel_within_derived_bound(card, rng, b, hq, hkv, sq, sk, causal, layout):
+    """bf16 at D = 128 across several ring stages and diagonal tiles: within
+    :func:`_within_bf16_bound` and within the reference's 3e-2 of the bf16
+    plain version."""
+    from repro_torch.kernels.flash_attention import attention, attention_plain
+
+    def one(h, s):
+        shape = (b, s, h, 128) if layout == "bsh" else (b, h, s, 128)
+        t = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(card, torch.bfloat16)
+        return t.transpose(1, 2) if layout == "bsh" else t
+
+    q, k, v = one(hq, sq), one(hkv, sk), one(hkv, sk)
+    n0 = _launches()
+    got = attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _launches() == (n0[0] + 1, n0[1])
+    assert got.is_contiguous() and got.shape == (b, hq, sq, 128)
+    ok, share = _within_bf16_bound(got, q, k, v, causal)
+    assert ok, share
+    plain = attention_plain(q, k, v, causal=causal).float()
+    assert float((got.float() - plain).abs().max()) < 3e-2
+
+
+def test_sm90_rows_without_keys_follow_tpu_schedule(card, rng):
+    """Sq = 200 > Sk = 128, causal: rows 0-71 see no key. The TPU kernel's
+    first front-padded 128-row block (real rows -56..71) skips its only key
+    tile and writes 0 there (``tests/test_torch_flash_attention.py::
+    test_tpu_kernel_zeroes_rows_of_skipped_blocks``); the sm90 kernel lays
+    its query tiles out the same way, so those rows are exactly 0, and the
+    others lie within :func:`_within_bf16_bound`."""
+    from repro_torch.kernels.flash_attention import attention
+
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (1, 2, s, 64)).astype(np.float32))
+               .to(card, torch.bfloat16) for s in (200, 128, 128))
+    got = attention(q, k, v, causal=True)
+    assert bool((got[:, :, :72] == 0).all())
+    ok, share = _within_bf16_bound(got[:, :, 72:], q[:, :, 72:], k, v, True)
+    assert ok, share
+
+
+def test_flash_routes_by_dtype(card, rng):
+    """bf16 launches the sm90 kernel and float32 the CUDA-core kernel, each
+    counted by its own wrapper; each wrapper refuses the other's dtype."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    q = torch.from_numpy(rng.normal(0, 1, (1, 2, 128, 64)).astype(np.float32)).to(card)
+    n0 = _launches()
+    kernel.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert _launches() == (n0[0] + 1, n0[1])
+    kernel.flash_attention(q, q, q)
+    assert _launches() == (n0[0] + 1, n0[1] + 1)
+    with pytest.raises(TypeError):
+        kernel.flash_attention_sm90(q, q, q)
+    with pytest.raises(TypeError):
+        kernel.flash_attention_f32(q.bfloat16(), q.bfloat16(), q.bfloat16())
 
 
 def test_flash_kernel_takes_strided_views(card, rng):
@@ -255,11 +347,11 @@ def test_lm_forward_on_card_launches_flash(card):
     base = dataclasses.replace(get_config("qwen3-8b").reduced(), n_kv_heads=2)
     toks = np.random.default_rng(3).integers(0, base.vocab, (2, 256)).astype(np.int32)
     params = build_model(base).init(0, device=card)
-    n0 = kernel.flash_attention.launches
+    n0 = kernel.flash_attention_f32.launches    # the reduced config computes in float32
     flash, _, _ = build_model(dataclasses.replace(base, attn_impl="flash")).forward(
         params, {"tokens": toks})
     torch.cuda.synchronize()
-    assert kernel.flash_attention.launches == n0 + base.n_layers
+    assert kernel.flash_attention_f32.launches == n0 + base.n_layers
     plain, _, _ = build_model(dataclasses.replace(base, attn_impl="ref")).forward(
         params, {"tokens": toks})
     rel = float((flash - plain).abs().max() / plain.abs().max())

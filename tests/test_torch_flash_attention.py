@@ -105,3 +105,105 @@ def test_error_contract(rng, case):
     if case != "bad_group":  # the reference asserts on the group instead
         with pytest.raises(ValueError):
             jattention(*map(jnp.asarray, (q, k, v)), use_pallas=True, **kw)
+
+
+def test_tpu_kernel_zeroes_rows_of_skipped_blocks(rng):
+    """The reference's tile schedule on rows that see no key (Sq > Sk): its
+    Pallas kernel front-pads q to 128-row blocks, and a block whose every
+    key tile lies above the diagonal is skipped and written as 0. Here
+    (Sq = 200, Sk = 128) the first block holds real rows -56..71, exactly
+    the rows that see no key; the port's sm90 kernel lays out its query
+    tiles the same way (held on the card by ``tests/test_torch_cuda.py``).
+    The rows that see keys agree with the port's plain version."""
+    q, k, v = _qkv(rng, 1, 2, 2, 200, 128, 64)
+    want = np.asarray(jattention(*map(jnp.asarray, (q, k, v)), causal=True, use_pallas=True))
+    assert np.all(want[:, :, :72] == 0)
+    plain = attention_plain(*map(torch.from_numpy, (q, k, v)), causal=True).numpy()
+    assert float(np.max(np.abs(want[:, :, 72:] - plain[:, :, 72:]))) < 2e-5
+
+
+# ------------------------------------------- the bf16 kernel's tolerance model
+LOG2E = 1.4426950408889634
+
+
+def _emulate_sm90(q, k, v, causal=True, shift=0, rescale=True):
+    """The rounding of ``csrc/flash_attention_sm90.cu`` in plain torch, on
+    float32 tensors holding bf16 values: logits in float32, online softmax
+    over 128-key tiles in the log2 domain, ``l`` summed from the float32 P,
+    P rounded to bf16 before P.V, one rounding of the output to bf16.
+
+    Every tile is taken: for Sq <= Sk each row sees key 0 in the first tile,
+    so a tile the kernel skips adds ``exp2(-1e30*log2e - m) = 0`` here.
+    ``shift`` moves the causal mask by that many keys and ``rescale=False``
+    drops the ``alpha`` rescale of the accumulator: the broken variants that
+    the bound must reject.
+    """
+    hq, hkv, sq, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    k = k.repeat_interleave(hq // hkv, dim=1)
+    v = v.repeat_interleave(hq // hkv, dim=1)
+    sk = k.shape[2]
+    c = (1.0 / d ** 0.5) * LOG2E
+    hidden = -1e30 * LOG2E
+    rows = torch.arange(sq)[:, None]
+    m = torch.full(q.shape[:3] + (1,), hidden)
+    l = torch.zeros(q.shape[:3] + (1,))
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, sk, 128):
+        kt, vt = k[:, :, k0:k0 + 128], v[:, :, k0:k0 + 128]
+        x = torch.matmul(q, kt.transpose(-1, -2)) * c
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            x = x.masked_fill(cols > rows + (sk - sq) + shift, hidden)
+        mx = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(x - mx)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = (acc * alpha if rescale else acc) + torch.matmul(p.bfloat16().float(), vt)
+        m = mx
+    return (acc / l.clamp_min(1e-30)).bfloat16().float()
+
+
+def _bf16_inputs(rng, b, hq, hkv, sq, sk, d):
+    return [torch.from_numpy(a).bfloat16().float() for a in _qkv(rng, b, hq, hkv, sq, sk, d)]
+
+
+def _share_of_bound(got, q, k, v, causal):
+    """Largest |got - want32| / (2^-8 |want32| + (2^-8 + 2^-15) A + 1e-5), with
+    want32 the JAX float32 oracle and A the oracle's softmax-weighted mean
+    of |v| on the same bf16-valued inputs."""
+    from repro.kernels.flash_attention import attention_ref as jref
+
+    rep = q.shape[1] // k.shape[1]
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k.repeat_interleave(rep, 1),
+                                                    v.repeat_interleave(rep, 1)))
+    want = np.asarray(jref(jq, jk, jv, causal=causal))
+    a = np.asarray(jref(jq, jk, jnp.abs(jv), causal=causal))
+    tol = 2.0 ** -8 * np.abs(want) + (2.0 ** -8 + 2.0 ** -15) * a + 1e-5
+    return float(np.max(np.abs(got.numpy() - want) / tol))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
+    (1, 2, 2, 128, 128, 64, True),
+    (1, 4, 2, 1024, 1024, 128, True),   # GQA, eight key tiles
+    (1, 2, 2, 1000, 1024, 128, True),   # ragged q
+    (1, 2, 2, 256, 256, 64, False),
+    (1, 8, 2, 256, 384, 32, True),      # decode-aligned rectangular
+])
+def test_sm90_rounding_within_derived_bound(rng, b, hq, hkv, sq, sk, d, causal):
+    """Rounding P to bf16 costs each term of P.V a relative error of at most
+    u = 2^-8, so the sum moves by at most u * A; the output's own rounding
+    adds u * |want32|, and 2^-15 * A covers the second-order terms. An
+    emulation of the kernel's rounding lies within that bound of the JAX
+    float32 oracle: the bound that ``tests/test_torch_cuda.py`` and
+    ``chip_smoke.py`` hold the kernel to."""
+    q, k, v = _bf16_inputs(rng, b, hq, hkv, sq, sk, d)
+    assert _share_of_bound(_emulate_sm90(q, k, v, causal), q, k, v, causal) <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["mask_shifted_by_one_key", "alpha_dropped"])
+def test_sm90_bound_rejects_broken_variants(rng, fault):
+    """The bound is not vacuous: a kernel whose causal mask lets one more key
+    through, or that forgets to rescale its accumulator, breaks it."""
+    q, k, v = _bf16_inputs(rng, 1, 4, 2, 1024, 1024, 128)
+    kw = {"shift": 1} if fault == "mask_shifted_by_one_key" else {"rescale": False}
+    assert _share_of_bound(_emulate_sm90(q, k, v, True, **kw), q, k, v, True) > 1.0
