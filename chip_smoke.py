@@ -21,9 +21,12 @@ Phases, each fatal on failure (nothing is caught):
    packages' readers. Every kernel must have launched at least once;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
    at the main path's shapes and on adversarial inputs (W = 32 and 64,
-   escapes, raw pages, NaN, ±inf, ±0, denormals, NaN and all-NaN pages);
-   the tolerance is exact equality of bit patterns. Times come from CUDA
-   events after warm-up;
+   escapes, raw pages, NaN, ±inf, ±0, denormals, NaN and all-NaN pages;
+   for the decode also a 4.2 M value page with one anchor, all-anchor
+   streams, 1, 1,057 and 2,115 stream blocks, two calls back to back and
+   four threads calling at once, see :func:`decode_cases`); the tolerance
+   is exact equality of bit patterns. Times come from CUDA events after
+   warm-up;
 4. the LM path, with every launch count set to 0 just before: qwen3-8b at
    its published widths and depth (36 layers, d_model 4096, 32/8 heads,
    head_dim 128, qk-norm, vocab 151936; bf16 compute over float32
@@ -65,8 +68,9 @@ Between phases 3 and 4 run the two paths added after them:
     and y columns cast to float32, exact to the bit, with the compressed
     size against the host paper-exact ``fp_delta_encode`` of the same
     array. Then both codec kernels against their plain versions at that
-    shape and on adversarial blocks (see :func:`codec_blocks`), exact in
-    all six encode outputs and the decoded bits.
+    shape and on adversarial blocks (see :func:`codec_blocks`; and 1, 7
+    and 5,000 blocks drawn from them), exact in all six encode outputs and
+    the decoded bits.
 
 Every line is one JSON object. The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
@@ -83,6 +87,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -400,6 +405,53 @@ def adversarial_pages_minmax(rng):
     return v, bounds
 
 
+def anchor_free_plan(rng, dtype, n: int):
+    """One fp_delta page of ``n`` values whose bit patterns step by at most
+    3000: no escapes, so its first value is its only anchor and the
+    decode's carry runs through every tile of the stream."""
+    from repro_torch.core.fp_delta import fp_delta_encode, fp_delta_plan
+
+    it = np.int32 if np.dtype(dtype).itemsize == 4 else np.int64
+    base = np.array([40.7], dtype).view(it)[0]
+    x = (base + np.cumsum(rng.integers(-3000, 3000, n))).astype(it).view(dtype)
+    payload, _ = fp_delta_encode(x)
+    plan = fp_delta_plan(payload, n, np.dtype(dtype))
+    require(int(np.sum(plan.flags)) == 0, "anchor_free_plan: the page has escapes")
+    return plan
+
+
+def decode_cases(rng):
+    """Adversarial streams for kernel 1 beyond the main and mixed-page ones,
+    as (name, words32, tok_off, nbits, anchor, width): per width, a 4.2 M
+    value page with one anchor (the look-back chains over about 2,000
+    tiles), an all-anchor stream of raw pages, one stream block (half a
+    tile), and 1,057 and 2,115 blocks (partial last tiles; 529 and 1,058
+    tiles, which no grid of whole SMs divides) cut from a longer stream."""
+    from repro_torch.core.fp_delta import fp_delta_encode, fp_delta_plan
+    from repro_torch.core.pages import PageMeta, page_stream_plan
+    from repro_torch.kernels.fp_delta import build_page_stream, stream_from_numpy
+
+    out = []
+    for dt in (np.float32, np.float64):
+        wname = f"w{np.dtype(dt).itemsize * 8}"
+        d = stream_from_numpy(build_page_stream([anchor_free_plan(rng, dt, 4_200_000)]),
+                              device=DEVICE)
+        out.append((f"long_carry_chain_{wname}", d.words32, d.tok_off, d.nbits, d.anchor, d.width))
+        raw = rng.normal(-8.6, 1.0, 300_000).astype(dt)
+        meta = PageMeta(0, raw.nbytes, len(raw), 0, 0, 0.0, 0.0, "raw", 0, 0)
+        plan = page_stream_plan(raw.tobytes(), meta, np.dtype(dt), "none")
+        d = stream_from_numpy(build_page_stream([plan, plan]), device=DEVICE)
+        out.append((f"all_anchors_{wname}", d.words32, d.tok_off, d.nbits, d.anchor, d.width))
+        plans = [fp_delta_plan(fp_delta_encode(p)[0], len(p), np.dtype(dt))
+                 for p in adversarial_pages(rng, dt, 3000)]
+        long = build_page_stream(plans + [anchor_free_plan(rng, dt, 2200 * 1024)])
+        d = stream_from_numpy(long, device=DEVICE)
+        for nb in (1, 1057, 2115):
+            out.append((f"n_blocks_{nb}_{wname}", d.words32,
+                        *(t[:nb].contiguous() for t in (d.tok_off, d.nbits, d.anchor)), d.width))
+    return out
+
+
 def mismatches(a, b) -> tuple[int, float]:
     """Positions whose bit patterns differ, and the largest |difference| of
     the patterns read as integers (0 when they agree)."""
@@ -435,15 +487,35 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
         s, a, _ = adversarial_stream(rng, dt)
         cases.append((f"adversarial_w{np.dtype(dt).itemsize * 8}",
                       stream_from_numpy(s, a, device=DEVICE)))
+    checks = [(name, (d.words32, d.tok_off, d.nbits, d.anchor, d.width)) for name, d in cases]
+    checks += [(name, tuple(args)) for name, *args in decode_cases(np.random.default_rng(17))]
     bad, err = 0, 0.0
-    for name, d in cases:
-        args = (d.words32, d.tok_off, d.nbits, d.anchor, d.width)
-        got, want = fk.decode_stream(*args), fr.decode_stream_ref(*args)
-        torch.cuda.synchronize()
-        m, e = mismatches(got, want)
-        emit({"check": "fp_delta.decode_stream", "case": name, "values": d.n_values,
-              "width": d.width, "mismatches": m})
+
+    def held(name, args, got) -> None:
+        nonlocal bad, err
+        m, e = mismatches(got, fr.decode_stream_ref(*args))
+        emit({"check": "fp_delta.decode_stream", "case": name, "positions": int(args[1].numel()),
+              "width": args[4], "mismatches": m})
         bad, err = bad + m, max(err, e)
+
+    for name, args in checks:
+        got = fk.decode_stream(*args)
+        torch.cuda.synchronize()
+        held(name, args, got)
+    # two calls queued back to back, then four threads at once (the scanner's
+    # pattern), three rounds: each call zeroes its own tile statuses
+    two = [checks[0][1], checks[3][1]]
+    outs = [fk.decode_stream(*a) for a in two]
+    torch.cuda.synchronize()
+    for i, (a, got) in enumerate(zip(two, outs)):
+        held(f"back_to_back_{i}", a, got)
+    four = [checks[i][1] for i in (0, 1, 2, 3)]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for r in range(3):
+            outs = list(pool.map(lambda a: fk.decode_stream(*a), four))
+            torch.cuda.synchronize()
+            for i, (a, got) in enumerate(zip(four, outs)):
+                held(f"four_threads_round{r}_{i}", a, got)
     args = (ds.words32, ds.tok_off, ds.nbits, ds.anchor, ds.width)
     n = ds.n_values
     # the packed words up to the end of the last token (the buffer's pow2 tail is not read)
@@ -458,7 +530,9 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
                       replaces="src/repro/kernels/fp_delta/kernel.py:159",
                       mismatches=bad, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                       bytes=bytes_moved, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
-                      bound_by="bytes", library_ms=None, shape={"values": n, "width": ds.width}))
+                      bound_by="bytes", library_ms=None,
+                      shape={"values": n, "positions": int(ds.tok_off.numel()),
+                             "packed_word_bytes": words_used, "width": ds.width}))
 
     # ---- kernel 2: per-record min/max + bbox survivor test
     bbox = main["_boxes"]["refine_10pct"]
@@ -748,8 +822,15 @@ def check_codec(codec: dict) -> list[dict]:
 
     main_blocks = _pad_to_blocks(torch.from_numpy(codec["_x32"]).to(DEVICE))[0]
     cases = [("main_x32", main_blocks, None)]
-    cases += [(n, torch.from_numpy(b.view(np.float32)).to(DEVICE), want)
-              for n, b, want in codec_blocks(np.random.default_rng(11))]
+    blocks = codec_blocks(np.random.default_rng(11))
+    cases += [(n, torch.from_numpy(b.view(np.float32)).to(DEVICE), want) for n, b, want in blocks]
+    # 1 and 7 miniblocks (fewer than the grid's warps) and 5,000 (more than
+    # its warps hold at once), drawn from the adversarial blocks
+    pool = np.concatenate([b for _, b, _ in blocks])
+    pick = np.random.default_rng(12)
+    cases += [(f"blocks_{k}", torch.from_numpy(pool[pick.integers(0, len(pool), k)]
+                                               .view(np.float32)).to(DEVICE), None)
+              for k in (1, 7, 5000)]
     bad_e = bad_d = 0
     err_e = err_d = 0.0
     for name, blocks, want in cases:
@@ -1159,10 +1240,11 @@ def main() -> int:
     t_start = time.perf_counter()
     _build.build_all(KERNEL_LIBS)
     emit({"build_s": time.perf_counter() - t_start})
-    ptxas = [ln.strip() for ln in _build.logs.get("flash_attention_sm90", "").splitlines()
-             if any(w in ln for w in ("entry function", "spill", "Used", "arning"))]
-    if ptxas:
-        emit({"ptxas_flash_attention_sm90": ptxas})
+    for lib in ("flash_attention_sm90", "fp_delta_decode", "miniblock"):   # the redesigned ones
+        ptxas = [ln.strip() for ln in _build.logs.get(lib, "").splitlines()
+                 if any(w in ln for w in ("entry function", "spill", "Used", "arning"))]
+        if ptxas:
+            emit({f"ptxas_{lib}": ptxas})
     counters = [fk.decode_stream, mk.segminmax_refine, mk.page_minmax, fk.encode_blocks,
                 fk.decode_blocks, ak.flash_attention_sm90, ak.flash_attention_f32]
     names = list(FILE_KERNELS + CODEC_KERNELS + LM_KERNELS) + [F32_FLASH]

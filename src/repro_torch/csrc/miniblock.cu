@@ -23,16 +23,32 @@
 // integer operations a value: both are bound by device-memory bytes
 // (3.35 TB/s).
 //
-// What the design does about that. One block of 256 threads per miniblock,
-// four values a thread, loaded and stored as 16-byte vectors; everything
-// between the load and the store stays in shared memory. Encode: a shared
-// histogram of bit lengths gives n_over(w) for every candidate at once;
-// a block scan (cub::BlockScan) of the over-width flags ranks the
-// exceptions; thread j builds output word j from the values that overlap
-// its 32 bits, so the packing needs no atomics. Decode: each value is
-// extracted from a two-word window into shared memory, the exceptions
-// overwrite their positions, and a block scan in uint32 does the prefix
-// sum. The TPU kernels' six packings combined by a masked sum and their
+// What the design does about that.
+// Encode: one warp per miniblock, persistent warps (as many as fit on the
+// SMs), so many miniblocks are in flight on every SM. Each warp keeps a
+// 2-stage ring of 4 KB in shared memory: the next miniblock arrives by a
+// cp.async.bulk copy (completing on an mbarrier) while the current one is
+// encoded, and the warp never waits at a block barrier. Lane l holds the
+// 32 consecutive values 32l..32l+31 in registers. n_over(w) for all
+// twelve candidates is counted without atomics: each lane adds, for each
+// value, a thermometer code of the candidates below its bit length (a
+// 33-entry shared table) into 6-bit fields of three registers, and one
+// warp reduction per candidate sums the fields. The width is chosen in
+// parallel: lane c forms candidate c's key (cost << 6 | w), infeasible
+// lanes and w = 32 the key of (32 * 1024, 32), and a warp minimum picks
+// the lexicographic (cost, w) minimum, which equals the reference's
+// ascending scan with strict improvement from w = 32 (no feasible
+// candidate can cost exactly 32 * 1024: that needs w >= 29). Exceptions
+// are ranked in position order by a warp scan of the per-lane counts. A
+// lane's 32 values fill exactly its own w output words, packed with shifts
+// known at compile time (one instantiation per width); the words are
+// staged in the spent ring stage (16-byte units swizzled against bank
+// conflicts) and stored coalesced, 16 bytes a lane.
+// Decode: one block of 256 threads per miniblock, four values a thread,
+// stored as 16-byte vectors; each value is extracted from a two-word
+// window into shared memory, the exceptions overwrite their positions,
+// and a block scan in uint32 does the prefix sum.
+// The TPU kernels' six packings combined by a masked sum and their
 // one-hot exception contractions are dropped. All arithmetic is uint32:
 // signed overflow is undefined in C++, and shifts by 32 are avoided.
 
@@ -48,7 +64,6 @@ constexpr int kBlock = kThreads * kItems;  // MINIBLOCK
 constexpr int kMaxExc = 64;
 constexpr int kExcBits = 48;
 constexpr int kNumCand = 12;
-__constant__ int kCandidates[kNumCand] = {0, 1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24};
 // bit w set for every width a block may carry: 0 and the packing widths
 constexpr unsigned long long kValidWidths =
     (1ull << 0) | (1ull << 1) | (1ull << 2) | (1ull << 3) | (1ull << 4) | (1ull << 6) |
@@ -59,118 +74,268 @@ __device__ __forceinline__ uint32_t width_mask(int w) {
   return w >= 32 ? 0xFFFFFFFFu : ((1u << w) - 1u);
 }
 
-using IntScanT = cub::BlockScan<int, kThreads>;
 using U32ScanT = cub::BlockScan<uint32_t, kThreads>;
 
-__global__ void __launch_bounds__(kThreads)
-encode_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ packed,
+// ---------------------------------------------------------------- encode
+// One warp per miniblock, persistent: warp g of G encodes blocks g, g + G,
+// ... Lane l holds the 32 consecutive values t = 32l + k (k = 0..31) in
+// registers, so its zigzags pack into the output words [l*w, l*w + w) on
+// their own: no value crosses into another lane's words.
+constexpr int kEncWarps = 8;
+constexpr int kEncThreads = kEncWarps * 32;
+constexpr uint32_t kBlockBytes = kBlock * 4;
+constexpr uint32_t kKey32 = ((kBlock * 32u) << 6) | 32u;  // (cost, w) of w = 32
+
+struct __align__(16) EncWarpSmem {
+  uint32_t ring[2][kBlock];          // input miniblocks, by bulk copy
+  int32_t exc[2][kMaxExc];           // exception positions, values
+  unsigned long long full[2];        // one mbarrier per ring stage
+};
+constexpr int kEncSmem = kEncWarps * static_cast<int>(sizeof(EncWarpSmem));
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One miniblock (4 KB) global -> shared by the bulk-copy engine.
+__device__ __forceinline__ void fetch_block(uint32_t* dst, const uint32_t* src,
+                                            unsigned long long* bar) {
+  const uint32_t b = smem_u32(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(kBlockBytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(kBlockBytes), "r"(b)
+      : "memory");
+}
+
+// #candidates (0, 1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24) below nb, for nb in [0, 32]
+__device__ __forceinline__ int n_below(int nb) {
+  return nb <= 4 ? nb : nb <= 12 ? 4 + ((nb - 3) >> 1) : nb <= 24 ? 8 + ((nb - 9) >> 2) : 12;
+}
+
+// candidate c's width, c in [0, 12)
+__device__ __forceinline__ int cand_width(int c) {
+  return c <= 4 ? c : c <= 8 ? 2 * c - 4 : 4 * c - 20;
+}
+
+// field c of a lane's candidate counts: 6-bit fields, five to a word
+__device__ __forceinline__ uint32_t field(const uint32_t (&acc)[3], int c) {
+  const uint32_t word = c < 5 ? acc[0] : c < 10 ? acc[1] : acc[2];  // no dynamic register index
+  return (word >> (6 * (c % 5))) & 63u;
+}
+
+// Staging layout of the packed words in shared memory: 16-byte unit u
+// lies at u ^ ((u >> 3) & 7). The lanes' vector writes at a stride of W
+// words and the coalesced reads of units 32q + l then hit distinct banks
+// (but for a few ways at W = 24 and W = 32).
+__device__ __forceinline__ int swz(int o) {
+  const int u = o >> 2;
+  return ((u ^ ((u >> 3) & 7)) << 2) | (o & 3);
+}
+
+// Lane-local packing at width W: the lane's 32 zigzags become its W output
+// words [l*W, l*W + W) (all indices known at compile time), written to the
+// staging area as 16- or 8-byte vectors where W allows.
+template <int W>
+__device__ __forceinline__ void pack_stage(const uint32_t (&z)[32], uint32_t* __restrict__ stage,
+                                           int lane) {
+  uint32_t words[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) words[i] = 0;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const uint32_t v = W == 32 ? z[k] : (z[k] & ((1u << (W % 32)) - 1u));
+    const int j = (k * W) >> 5;
+    const int s = (k * W) & 31;
+    words[j] |= v << s;
+    if (s + W > 32 && j + 1 < W) words[j + 1] |= v >> (32 - s);
+  }
+  const int o = lane * W;
+  if (W % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < W; i += 4)
+      *reinterpret_cast<uint4*>(stage + swz(o + i)) =
+          make_uint4(words[i], words[i + 1], words[i + 2], words[i + 3]);
+  } else if (W % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < W; i += 2)
+      *reinterpret_cast<uint2*>(stage + swz(o + i)) = make_uint2(words[i], words[i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) stage[swz(o + i)] = words[i];
+  }
+}
+
+__global__ void __launch_bounds__(kEncThreads)
+encode_kernel(const uint32_t* __restrict__ x, int n_blocks, int32_t* __restrict__ packed,
               int32_t* __restrict__ widths, int32_t* __restrict__ anchors,
               int32_t* __restrict__ exc_idx, int32_t* __restrict__ exc_val,
               int32_t* __restrict__ exc_count) {
-  __shared__ uint32_t xs[kBlock];
-  __shared__ uint32_t zs[kBlock];
-  __shared__ int hist[33];
-  __shared__ int s_width;
-  __shared__ typename IntScanT::TempStorage scan_temp;
-
-  const long long blk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int t0 = tid * kItems;
-  const uint4 v4 = reinterpret_cast<const uint4*>(x + blk * kBlock)[tid];
-  xs[t0] = v4.x;
-  xs[t0 + 1] = v4.y;
-  xs[t0 + 2] = v4.z;
-  xs[t0 + 3] = v4.w;
-  if (tid < 33) hist[tid] = 0;
-  __syncthreads();
-
-  uint32_t z[kItems];
-  int nb[kItems];
+  extern __shared__ __align__(128) unsigned char smem[];
+  // thermometer codes: for bit length nb, 1 in field c of every candidate c below nb
+  __shared__ uint4 therm[33];
+  if (threadIdx.x < 33) {
+    const int m = n_below(threadIdx.x);
+    uint32_t acc[3] = {0, 0, 0};
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int t = t0 + k;
-    const uint32_t prev = xs[t == 0 ? 0 : t - 1];
-    const uint32_t d = xs[t] - prev;                       // wraps mod 2^32
-    z[k] = (d << 1) ^ (0u - (d >> 31));                    // zigzag of int32 d
-    nb[k] = 32 - __clz(z[k]);                              // 0 for 0
-    zs[t] = z[k];
-    atomicAdd(&hist[nb[k]], 1);
+    for (int c = 0; c < kNumCand; ++c)
+      if (c < m) acc[c / 5] |= 1u << (6 * (c % 5));
+    therm[threadIdx.x] = make_uint4(acc[0], acc[1], acc[2], 0);
   }
-  __syncthreads();
+  __syncthreads();  // the only block-wide barrier: warps run alone from here
 
-  if (tid == 0) {
-    // n_over(w) = #values with more than w bits: suffix sums of the histogram
-    int best_w = 32, best_cost = kBlock * 32;
+  const int lane = threadIdx.x & 31;
+  EncWarpSmem& ws = reinterpret_cast<EncWarpSmem*>(smem)[threadIdx.x >> 5];
+  const long long g = static_cast<long long>(blockIdx.x) * kEncWarps + (threadIdx.x >> 5);
+  const long long step = static_cast<long long>(gridDim.x) * kEncWarps;
+  if (g >= n_blocks) return;
+  if (lane == 0) {
+    for (int s = 0; s < 2; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&ws.full[s]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fetch_block(ws.ring[0], x + g * kBlock, &ws.full[0]);
+  }
+  __syncwarp();
+
+  int it = 0;
+  for (long long blk = g; blk < n_blocks; blk += step, ++it) {
+    const int s = it & 1;
+    // the next miniblock arrives while this one is encoded; its stage was
+    // released (fence.proxy.async + __syncwarp) at the end of the last block
+    if (lane == 0 && blk + step < n_blocks)
+      fetch_block(ws.ring[s ^ 1], x + (blk + step) * kBlock, &ws.full[s ^ 1]);
+    mbar_wait(smem_u32(&ws.full[s]), (it >> 1) & 1);
+
+    uint32_t z[32];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const uint4 t = reinterpret_cast<const uint4*>(ws.ring[s])[8 * lane + q];
+      z[4 * q] = t.x;
+      z[4 * q + 1] = t.y;
+      z[4 * q + 2] = t.z;
+      z[4 * q + 3] = t.w;
+    }
+    const uint32_t anchor = __shfl_sync(0xFFFFFFFFu, z[0], 0);
+    const uint32_t before = __shfl_up_sync(0xFFFFFFFFu, z[31], 1);
+    __syncwarp();  // the stage is read: it now stages this block's packed words
+
+    // deltas (wrapping) and zigzags in place; per-lane counts of nb > w_c
+    // for every candidate, from the thermometer codes
+    uint32_t acc[3] = {0, 0, 0};
+    uint32_t prev = lane ? before : z[0];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const uint32_t d = z[k] - prev;
+      prev = z[k];
+      z[k] = (d << 1) ^ (0u - (d >> 31));
+      const uint4 th = therm[32 - __clz(z[k])];
+      acc[0] += th.x;
+      acc[1] += th.y;
+      acc[2] += th.z;
+    }
+
+    // width: lane c takes candidate c's (cost, w); the warp's minimum key is
+    // the lexicographic (cost, w) minimum, with w = 32 at cost 32 * 1024
+    uint32_t mine = 0;
+#pragma unroll
     for (int c = 0; c < kNumCand; ++c) {
-      const int w = kCandidates[c];
-      int n_over = 0;
-      for (int b = w + 1; b <= 32; ++b) n_over += hist[b];
-      const int cost = kBlock * w + kExcBits * n_over;
-      if (n_over <= kMaxExc && cost < best_cost) {
-        best_w = w;
-        best_cost = cost;
-      }
+      const uint32_t n_c = __reduce_add_sync(0xFFFFFFFFu, field(acc, c));
+      if (lane == c) mine = n_c;
     }
-    s_width = best_w;
-    widths[blk] = best_w;
-    anchors[blk] = static_cast<int32_t>(xs[0]);
-  }
-  __syncthreads();
-  const int w = s_width;
+    uint32_t key = kKey32;
+    if (lane < kNumCand && mine <= kMaxExc) {
+      const int wc = cand_width(lane);
+      key = (static_cast<uint32_t>(kBlock * wc + kExcBits * static_cast<int>(mine)) << 6) |
+            static_cast<uint32_t>(wc);
+    }
+    key = __reduce_min_sync(0xFFFFFFFFu, key);
+    const int w = static_cast<int>(key & 63u);
+    const int count = w == 32 ? 0 : static_cast<int>(((key >> 6) - kBlock * w) / kExcBits);
 
-  // exceptions: rank the over-width values in position order
-  int flags[kItems];
-  int mine = 0;
+    // exceptions (count <= 64), in position order: lane l's come after the
+    // exceptions of lanes below it (a warp scan of the per-lane counts)
+    ws.exc[0][lane] = 0;
+    ws.exc[0][lane + 32] = 0;
+    ws.exc[1][lane] = 0;
+    ws.exc[1][lane + 32] = 0;
+    __syncwarp();
+    if (count > 0) {
+      const int n_mine = static_cast<int>(field(acc, n_below(w + 1) - 1));
+      int r = n_mine;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    flags[k] = nb[k] > w;
-    mine += flags[k];
-  }
-  int rank, total;
-  IntScanT(scan_temp).ExclusiveSum(mine, rank, total);
-  const int count = total < kMaxExc ? total : kMaxExc;
-  int32_t* eidx = exc_idx + blk * kMaxExc;
-  int32_t* eval = exc_val + blk * kMaxExc;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (flags[k]) {
-      if (rank < kMaxExc) {
-        eidx[rank] = t0 + k;
-        eval[rank] = static_cast<int32_t>(z[k]);
+      for (int d = 1; d < 32; d <<= 1) {
+        const int up = __shfl_up_sync(0xFFFFFFFFu, r, d);
+        if (lane >= d) r += up;
       }
-      ++rank;
+      r -= n_mine;  // exclusive
+      if (n_mine > 0) {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+          if (32 - __clz(z[k]) > w) {
+            ws.exc[0][r] = 32 * lane + k;
+            ws.exc[1][r] = static_cast<int32_t>(z[k]);
+            ++r;
+          }
+        }
+      }
     }
-  }
-  if (tid >= count && tid < kMaxExc) {
-    eidx[tid] = 0;
-    eval[tid] = 0;
-  }
-  if (tid == 0) exc_count[blk] = count;
 
-  // pack: word j holds bits [32j, 32j + 32) of the LSB-first stream
-  const uint32_t mask = width_mask(w);
-  uint32_t out[kItems];
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = t0 + k;
-    uint32_t word = 0;
-    if (w > 0 && j < 32 * w) {
-      const int lo_bit = 32 * j;
-      const int first = lo_bit / w;
-      int last = (lo_bit + 31) / w;
-      if (last > kBlock - 1) last = kBlock - 1;
-      for (int t = first; t <= last; ++t) {
-        const uint32_t v = zs[t] & mask;
-        const int o = t * w;
-        word |= o >= lo_bit ? (v << (o - lo_bit)) : (v >> (lo_bit - o));
-      }
+    // pack into the spent input stage, then store coalesced, 16 bytes a lane
+    uint32_t* stage = ws.ring[s];
+    switch (w) {
+      case 1: pack_stage<1>(z, stage, lane); break;
+      case 2: pack_stage<2>(z, stage, lane); break;
+      case 3: pack_stage<3>(z, stage, lane); break;
+      case 4: pack_stage<4>(z, stage, lane); break;
+      case 6: pack_stage<6>(z, stage, lane); break;
+      case 8: pack_stage<8>(z, stage, lane); break;
+      case 10: pack_stage<10>(z, stage, lane); break;
+      case 12: pack_stage<12>(z, stage, lane); break;
+      case 16: pack_stage<16>(z, stage, lane); break;
+      case 20: pack_stage<20>(z, stage, lane); break;
+      case 24: pack_stage<24>(z, stage, lane); break;
+      case 32: pack_stage<32>(z, stage, lane); break;
+      default: break;  // w = 0: no payload
     }
-    out[k] = word;
+    __syncwarp();
+    uint4* row = reinterpret_cast<uint4*>(packed + blk * kBlock);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int u = 32 * q + lane;  // the words past the payload (u >= 8w) are 0
+      row[u] = u < 8 * w ? reinterpret_cast<const uint4*>(stage)[u ^ ((u >> 3) & 7)]
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+    reinterpret_cast<int4*>(lane < 16 ? exc_idx + blk * kMaxExc : exc_val + blk * kMaxExc)[lane & 15] =
+        reinterpret_cast<const int4*>(ws.exc[lane >> 4])[lane & 15];
+    if (lane == 0) {
+      widths[blk] = w;
+      anchors[blk] = static_cast<int32_t>(anchor);
+      exc_count[blk] = count;
+    }
+    // release the stage to the bulk-copy engine; the exception slots are
+    // rewritten for the next block
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
   }
-  reinterpret_cast<uint4*>(packed + blk * kBlock)[tid] =
-      make_uint4(out[0], out[1], out[2], out[3]);
 }
 
+// ---------------------------------------------------------------- decode
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ widths,
               const int32_t* __restrict__ anchors, const int32_t* __restrict__ exc_idx,
@@ -231,19 +396,30 @@ decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ w
 
 extern "C" {
 
-// x: n_blocks * 1024 uint32 patterns; packed: n_blocks * 1024 int32;
+// x: n_blocks * 1024 uint32 patterns, 16-byte aligned; packed: n_blocks * 1024 int32;
 // widths, anchors, exc_count: n_blocks int32; exc_idx, exc_val:
 // n_blocks * 64 int32. Returns cudaGetLastError().
 int mb_encode_blocks(const void* x, int n_blocks, void* packed, void* widths,
                      void* anchors, void* exc_idx, void* exc_val, void* exc_count,
                      void* stream) {
-  if (n_blocks > 0) {
-    encode_kernel<<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(x), static_cast<int32_t*>(packed),
-        static_cast<int32_t*>(widths), static_cast<int32_t*>(anchors),
-        static_cast<int32_t*>(exc_idx), static_cast<int32_t*>(exc_val),
-        static_cast<int32_t*>(exc_count));
-  }
+  if (n_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaFuncSetAttribute(encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kEncSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, encode_kernel, kEncThreads, kEncSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long need = (static_cast<long long>(n_blocks) + kEncWarps - 1) / kEncWarps;
+  if (grid > need) grid = need;
+  encode_kernel<<<static_cast<int>(grid), kEncThreads, kEncSmem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), n_blocks, static_cast<int32_t*>(packed),
+      static_cast<int32_t*>(widths), static_cast<int32_t*>(anchors),
+      static_cast<int32_t*>(exc_idx), static_cast<int32_t*>(exc_val),
+      static_cast<int32_t*>(exc_count));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,19 +55,23 @@ def decode_stream(words32, tok_off, nbits, anchor, width: int) -> torch.Tensor:
     _check(words32, "words32", torch.int32, dev, words32.shape)
     for t, name in ((tok_off, "tok_off"), (nbits, "nbits"), (anchor, "anchor")):
         _check(t, name, torch.int32, dev, shape)
+    # the kernel copies operand rows with the bulk-copy engine (16-byte aligned)
+    tok_off, nbits, anchor = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (tok_off, nbits, anchor))
     n_blocks = shape[0]
     out = torch.empty(n_blocks * STREAM_BLOCK,
                       dtype=torch.int32 if width == 32 else torch.int64, device=dev)
-    sum_v = torch.empty(n_blocks, dtype=torch.int64, device=dev)
-    sum_f = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    carry = torch.empty(n_blocks, dtype=torch.int64, device=dev)
     lib = _build.load("fp_delta_decode")
+    lib.fpd_scratch_words.argtypes = [ctypes.c_int]
+    lib.fpd_scratch_words.restype = ctypes.c_longlong
+    # the tile ticket and statuses, zeroed by the entry point on this stream
+    scratch = torch.empty(lib.fpd_scratch_words(n_blocks), dtype=torch.int64, device=dev)
     fn = lib.fpd_decode_stream
-    fn.argtypes = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P]
     fn.restype = ctypes.c_int
     err = fn(words32.data_ptr(), tok_off.data_ptr(), nbits.data_ptr(),
-             anchor.data_ptr(), n_blocks, width, sum_v.data_ptr(),
-             sum_f.data_ptr(), carry.data_ptr(), out.data_ptr(), _stream(dev))
+             anchor.data_ptr(), n_blocks, width, scratch.data_ptr(), out.data_ptr(),
+             _stream(dev))
     _build.check(lib, "fpd", err, "decode_stream launch")
     _build.bump(decode_stream)
     return out

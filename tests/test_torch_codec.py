@@ -221,3 +221,89 @@ def test_launch_counter_is_thread_safe():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert fn.launches == 80_000
+
+
+# ------------------------------------------- the encode kernel's width algebra
+CANDIDATES = (0,) + tref.WIDTHS[:-1]
+KEY32 = ((tref.MINIBLOCK * 32) << 6) | 32
+
+
+def _n_below(nb: torch.Tensor) -> torch.Tensor:
+    """Candidates below each bit length, by the kernel's closed form."""
+    return torch.where(nb <= 4, nb, torch.where(nb <= 12, 4 + ((nb - 3) >> 1),
+                                                torch.where(nb <= 24, 8 + ((nb - 9) >> 2), 12)))
+
+
+def _argmin_width(nbits: torch.Tensor) -> torch.Tensor:
+    """The encode kernel's width choice on (n, 1024) bit lengths. Lane l
+    holds values 32l..32l+31 and adds, for each, the thermometer code of
+    the candidates below its bit length into 6-bit fields, five to a 32-bit
+    word (three words); one warp sum per candidate gives n_over; then the
+    minimum key (cost << 6 | w) over the feasible candidates and w = 32."""
+    n, m = nbits.shape
+    k = len(CANDIDATES)
+    below = _n_below(nbits)                                  # [block, t]
+    acc = []
+    for word in range(3):
+        code = torch.zeros_like(below)
+        for c in range(5 * word, min(5 * word + 5, k)):
+            code = code + ((below > c).to(torch.int64) << (6 * (c % 5)))
+        acc.append(code.reshape(n, 32, 32).sum(2))           # [block, lane]: 32 values each
+    assert all(int(a.max()) < 2 ** 32 for a in acc)
+    fields = torch.stack([(acc[c // 5] >> (6 * (c % 5))) & 63 for c in range(k)], -1)
+    n_over = fields.sum(1)                                   # [block, candidate]
+    w = torch.tensor(CANDIDATES, dtype=torch.int64)
+    key = torch.where(n_over <= tref.MAX_EXC, ((m * w + tref.EXC_BITS * n_over) << 6) | w, KEY32)
+    return (torch.cat([key, torch.full((n, 1), KEY32)], 1).min(1).values & 63)
+
+
+def test_n_below_counts_candidates():
+    nb = torch.arange(33)
+    want = torch.tensor([sum(w < b for w in CANDIDATES) for b in range(33)])
+    assert torch.equal(_n_below(nb), want)
+
+
+def _check_width_forms(nbits: np.ndarray) -> torch.Tensor:
+    from repro.kernels.fp_delta.ref import choose_width as jchoose
+
+    t = torch.from_numpy(nbits.astype(np.int64))
+    got = _argmin_width(t)
+    assert torch.equal(got, tref.choose_width(t))
+    assert np.array_equal(got.numpy(), np.asarray(jchoose(nbits.astype(np.int32))[0]))
+    return got
+
+
+@pytest.mark.parametrize("k", [0, 1, 63, 64, 65, 1023])
+@pytest.mark.parametrize("w", (0,) + tref.WIDTHS)
+def test_argmin_width_equals_choose_width(rng, w, k):
+    """Blocks whose bit lengths all lie at or under w, with k of them
+    raised to w + 1 or to 32 (64 is the exception limit, 65 one over it)."""
+    rows = []
+    for hi in (min(w + 1, 32), 32):
+        for lo_mix in (True, False):
+            nb = np.full(1024, w, np.int64)
+            if lo_mix:
+                nb = rng.integers(0, w + 1, 1024)
+            nb[rng.choice(1024, k, replace=False)] = hi
+            rows.append(nb)
+    _check_width_forms(np.stack(rows))
+
+
+@pytest.mark.parametrize("pair", [(0, 3), (1, 4), (3, 6)])
+def test_argmin_width_keeps_the_smaller_width_on_a_tie(rng, pair):
+    """cost(w1) = 1024 w1 + 48 * 64 = 1024 w2 = cost(w2) when the 64 longest
+    values have w2 bits: both forms keep w1."""
+    w1, w2 = pair
+    nb = rng.integers(0, w1 + 1, 1024)
+    nb[rng.choice(1024, 64, replace=False)] = w2
+    assert int(_check_width_forms(nb[None])[0]) == w1
+
+
+def test_argmin_width_on_random_bit_lengths(rng):
+    """Random mixes: a base width with a spread below it and a geometric
+    tail of longer values."""
+    base = rng.choice(np.array((0,) + tref.WIDTHS), 400)
+    spread = rng.integers(0, 33, (400, 1024))
+    nb = np.minimum(np.maximum(base[:, None] - spread % 5, 0)
+                    + (rng.geometric(0.9, (400, 1024)) - 1) * rng.integers(0, 8, (400, 1)), 32)
+    _check_width_forms(nb)

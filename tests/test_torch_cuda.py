@@ -120,6 +120,107 @@ def test_main_path_on_card_matches_host(card, tmp_path):
     assert all(c1 > c0 for c0, c1 in zip(counts0, counts1))
 
 
+def _anchor_free_plan(rng, dtype, n):
+    """One fp_delta page of ``n`` values whose bit patterns step by at most
+    3000: no escapes, so its only anchor is its first value and the carry
+    runs through every tile of the stream."""
+    it = np.int32 if np.dtype(dtype).itemsize == 4 else np.int64
+    base = np.array([40.7], dtype).view(it)[0]
+    x = (base + np.cumsum(rng.integers(-3000, 3000, n))).astype(it).view(dtype)
+    payload, _ = fp_delta_encode(x)
+    plan = fp_delta_plan(payload, n, np.dtype(dtype))
+    assert int(np.sum(plan.flags)) == 0
+    return x, plan
+
+
+def _decode_both(ds):
+    args = (ds.words32, ds.tok_off, ds.nbits, ds.anchor, ds.width)
+    return fkernel.decode_stream(*args), fref.decode_stream_ref(*args)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_decode_kernel_long_carry_chain(card, rng, dtype):
+    """4.2 M values with one anchor: the look-back chains over about 2,000
+    tiles of real values (4,096 tiles with the padding)."""
+    x, plan = _anchor_free_plan(rng, dtype, 4_200_000)
+    ds = tfd.stream_from_numpy(tfd.build_page_stream([plan]), device=card)
+    assert int(ds.anchor.reshape(-1)[: len(x)].sum()) == 1
+    got, want = _decode_both(ds)
+    assert torch.equal(got, want)
+    assert np.array_equal(got[: len(x)].cpu().numpy(), x.view(got.cpu().numpy().dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_decode_kernel_all_anchors(card, rng, dtype):
+    """Raw pages only: every position is an anchor, every tile inclusive at once."""
+    raw = rng.normal(-8.6, 1.0, 300_000).astype(dtype)
+    meta = PageMeta(0, raw.nbytes, len(raw), 0, 0, 0.0, 0.0, "raw", 0, 0)
+    plan = page_stream_plan(raw.tobytes(), meta, np.dtype(dtype), "none")
+    ds = tfd.stream_from_numpy(tfd.build_page_stream([plan, plan]), device=card)
+    assert bool((ds.anchor != 0).all())
+    got, want = _decode_both(ds)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n_blocks", [1, 3, 1057, 2115])
+def test_decode_kernel_tile_counts(card, rng, dtype, n_blocks):
+    """One stream block (half a tile), odd block counts (a partial last
+    tile), and tile counts (529, 1058) that no persistent grid of whole
+    SMs times blocks per SM divides: the first rows of a longer stream."""
+    x, plan = _anchor_free_plan(rng, dtype, 2200 * 1024)
+    _, plans = _pages(rng, dtype, 3000)
+    s = tfd.build_page_stream(plans + [plan])
+    ds = tfd.stream_from_numpy(s, device=card)
+    args = [t[:n_blocks].contiguous() for t in (ds.tok_off, ds.nbits, ds.anchor)]
+    got = fkernel.decode_stream(ds.words32, *args, ds.width)
+    assert got.shape == (n_blocks * 1024,)
+    assert torch.equal(got, fref.decode_stream_ref(ds.words32, *args, ds.width))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_decode_kernel_back_to_back_and_threads(card, rng, dtype):
+    """Two calls queued back to back without a synchronise, then four
+    threads calling at once (the scanner's pattern): each call zeroes its
+    own tile statuses on its stream, so none sees another's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    streams = []
+    for n in (1_500_000, 900_000, 2_300_000, 40_000):
+        _, plan = _anchor_free_plan(rng, dtype, n)
+        _, plans = _pages(rng, dtype, 4000)
+        streams.append(tfd.stream_from_numpy(tfd.build_page_stream(plans + [plan]),
+                                             device=card))
+    a, b = (fkernel.decode_stream(d.words32, d.tok_off, d.nbits, d.anchor, d.width)
+            for d in streams[:2])
+    torch.cuda.synchronize()
+    for got, d in ((a, streams[0]), (b, streams[1])):
+        assert torch.equal(got, _decode_both(d)[1])
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for _ in range(3):
+            outs = list(pool.map(lambda d: fkernel.decode_stream(
+                d.words32, d.tok_off, d.nbits, d.anchor, d.width), streams))
+            torch.cuda.synchronize()
+            for got, d in zip(outs, streams):
+                assert torch.equal(got, _decode_both(d)[1])
+
+
+def test_decode_kernel_copies_misaligned_operands(card, rng):
+    """Operands that are contiguous but not 16-byte aligned are copied
+    before the bulk loads, not refused."""
+    _, plans = _pages(rng, np.float64, 3000)
+    ds = tfd.stream_from_numpy(tfd.build_page_stream(plans), device=card)
+    shifted = []
+    for t in (ds.tok_off, ds.nbits, ds.anchor):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        shifted.append(view)
+    got = fkernel.decode_stream(ds.words32, *shifted, ds.width)
+    assert torch.equal(got, fref.decode_stream_ref(ds.words32, *shifted, ds.width))
+
+
 # ---------------------------------------------------------- miniblock codec
 def _codec_blocks(rng):
     """(n, 1024) uint32 blocks: smooth with outliers, random patterns, a
@@ -150,6 +251,55 @@ def test_miniblock_kernels_match_plain(card, rng):
     assert torch.equal(back.view(torch.int32), x.view(torch.int32))
     assert (fkernel.encode_blocks.launches, fkernel.decode_blocks.launches) == (n0[0] + 1,
                                                                                  n0[1] + 1)
+
+
+def _adversarial_blocks(rng):
+    """(n, 1024) uint32 blocks: a block at every width, 64 and 65 outliers
+    (width 4 with 64 exceptions; 65 push it to 20), and a cost tie
+    (cost(1) = 1024 + 48 * 64 = cost(4): width 1 is kept)."""
+    def from_zig(z):
+        z = np.asarray(z, np.uint32).copy()
+        z[0] = 0
+        d = (z >> np.uint32(1)) ^ (np.uint32(0) - (z & np.uint32(1)))
+        return np.uint32(0x42240000) + np.cumsum(d, dtype=np.uint32)
+
+    def bits(lo, hi, n):
+        return rng.integers(lo, hi, n, dtype=np.uint64).astype(np.uint32)
+
+    blocks = [np.full(1024, np.float32(2.5)).view(np.uint32)]
+    blocks += [from_zig(bits(1 << (w - 1), 1 << w, 1024)) for w in fref.WIDTHS]
+    for k in (64, 65):
+        z = bits(8, 16, 1024)
+        z[rng.choice(np.arange(1, 1024), k, replace=False)] = bits(1 << 19, 1 << 20, k)
+        blocks.append(from_zig(z))
+    z = np.ones(1024, np.uint32)
+    z[rng.choice(np.arange(1, 1024), 64, replace=False)] = bits(8, 16, 64)
+    blocks.append(from_zig(z))
+    return np.stack(blocks)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 7, 5000])
+def test_encode_kernel_block_counts(card, rng, n_blocks):
+    """1 and 7 miniblocks (fewer than one persistent warp each), and 5,000
+    (more than the grid's warps hold at once: every warp's ring wraps),
+    drawn from the adversarial blocks, smooth blocks with outliers and
+    random patterns; all six outputs equal the plain version's."""
+    adv = _adversarial_blocks(rng)
+    pool = np.concatenate([adv, _codec_blocks(rng)])
+    x = pool[rng.integers(0, len(pool), n_blocks)]
+    x[: min(n_blocks, len(adv))] = adv[: min(n_blocks, len(adv))]
+    xt = torch.from_numpy(x.view(np.float32)).to(card)
+    got = fkernel.encode_blocks(xt)
+    want = fref.encode_blocks_ref(xt)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if n_blocks >= len(adv):
+        w, c = got[1][: len(adv)].tolist(), got[5][: len(adv)].tolist()
+        assert w[: 1 + len(fref.WIDTHS)] == [0, *fref.WIDTHS]
+        assert (w[-3], c[-3]) == (4, 64) and (w[-2], c[-2]) == (20, 0)
+        assert (w[-1], c[-1]) == (1, 64)
+    back = fkernel.decode_blocks(*got)
+    assert torch.equal(back.view(torch.int32), xt.view(torch.int32))
 
 
 def test_codec_round_trip_on_card(card, rng):

@@ -205,3 +205,70 @@ def test_kernel_wrapper_takes_only_cuda_tensors(rng):
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.decode_stream(ds.words32, ds.tok_off, ds.nbits, ds.anchor, ds.width)
     assert kernel.decode_stream.launches == 0
+
+
+# ------------------------------------- the decode kernel's cross-tile algebra
+def _look_back_stitch(vals, anc, tile, mask):
+    """The one-pass kernel's result, tile by tile: each tile's local
+    segmented sum, then the carry from a decoupled look-back. A tile with an
+    anchor (or tile 0) publishes its inclusive value; any other tile its
+    aggregate. Unless its first position is an anchor, a tile then looks
+    back 32 predecessors at a time (lane 31 the nearest) to the highest
+    inclusive one, adding the aggregates above it: the carry into the
+    positions before its first anchor."""
+    def wrap(x):  # int64 two's complement, as the kernel's sums mod 2^64
+        return (x + 2 ** 63) % 2 ** 64 - 2 ** 63
+
+    n = vals.shape[0]
+    n_tiles = -(-n // tile)
+    agg, incl = [None] * n_tiles, [None] * n_tiles
+    out = torch.empty_like(vals)
+    for t in range(n_tiles):
+        v, a = vals[t * tile:(t + 1) * tile], anc[t * tile:(t + 1) * tile]
+        local = tfd.ref.segmented_sum(v, a)
+        seen = torch.cumsum(a.to(torch.int64), 0) > 0
+        total = int(local[-1])
+        prefix = 0
+        if t == 0 or bool(a.any()):
+            incl[t] = total
+        else:
+            agg[t] = total
+        if t > 0 and not bool(a[0]):
+            end = t - 1
+            while True:
+                window = list(range(end - 31, end + 1))
+                hits = [i for i, j in enumerate(window) if j >= 0 and incl[j] is not None]
+                lo = hits[-1] if hits else 0
+                for j in window[lo:]:
+                    if j >= 0:
+                        prefix = wrap(prefix + (incl[j] if incl[j] is not None else agg[j]))
+                if hits:
+                    break
+                end -= 32
+            if incl[t] is None:
+                incl[t] = wrap(prefix + total)
+        out[t * tile:(t + 1) * tile] = torch.where(seen, local, local + prefix)
+    return out & mask
+
+
+@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("anchors", ["inside_tiles", "none_over_many_tiles", "all"])
+@pytest.mark.parametrize("tile", [1024, 2048, 4096])
+def test_tile_stitching_equals_segmented_sum(rng, tile, anchors, width):
+    """``segmented_sum`` over a stream equals tile-local segmented sums
+    stitched by the look-back's exclusive segmented prefix of the tile
+    aggregates, in W-bit arithmetic (mod 2^32 commutes with the sums), over
+    70 tiles and a half tile (three look-back windows, a partial last tile)."""
+    n = 70 * tile + tile // 2
+    vals = torch.from_numpy(rng.integers(-(2 ** 62), 2 ** 62, n, dtype=np.int64))
+    if anchors == "inside_tiles":
+        anc = torch.from_numpy(rng.random(n) < 1.5 / tile)
+        anc[5 * tile:40 * tile] = False          # and a run of 35 anchor-free tiles
+    elif anchors == "none_over_many_tiles":
+        anc = torch.zeros(n, dtype=torch.bool)   # values before any anchor sum from 0
+        anc[3] = True
+    else:
+        anc = torch.ones(n, dtype=torch.bool)
+    mask = (1 << 32) - 1 if width == 32 else -1
+    want = tfd.ref.segmented_sum(vals, anc) & mask
+    assert torch.equal(_look_back_stitch(vals, anc, tile, mask), want)
