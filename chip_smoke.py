@@ -24,9 +24,14 @@ Phases, each fatal on failure (nothing is caught):
    escapes, raw pages, NaN, ±inf, ±0, denormals, NaN and all-NaN pages;
    for the decode also a 4.2 M value page with one anchor, all-anchor
    streams, 1, 1,057 and 2,115 stream blocks, two calls back to back and
-   four threads calling at once, see :func:`decode_cases`); the tolerance
-   is exact equality of bit patterns. Times come from CUDA events after
-   warm-up;
+   four threads calling at once, see :func:`decode_cases`; for the page
+   min/max also a 1<<20-value page, 10,000 empty pages among real ones,
+   ragged bounds and values 4 and 12 bytes off a 16-byte boundary, calls
+   back to back and from four threads, see :func:`minmax_page_cases`);
+   the tolerance is exact equality of bit patterns. Times come from CUDA
+   events around ten calls after warm-up (``kernel_ms``) and from a
+   ``torch.profiler`` trace of ten more (``device_ms``: the kernels' own
+   time, without host dispatch);
 4. the LM path, with every launch count set to 0 just before: qwen3-8b at
    its published widths and depth (36 layers, d_model 4096, 32/8 heads,
    head_dim 128, qk-norm, vocab 151936; bf16 compute over float32
@@ -42,14 +47,18 @@ Phases, each fatal on failure (nothing is caught):
    (``attn_impl="ref"``) and both against a float32 forward (see
    :func:`lm_path` for the rules). A ``torch.profiler`` trace of one more
    forward and of one decode step (batch 32) splits their device time by
-   kernel group;
+   kernel group. Then the float32 route, every count set to 0 just before:
+   the same forward in float32 compute with ``attn_impl="flash"`` must
+   launch the CUDA-core flash kernel once per layer (and the sm90 kernel
+   never) and lie no farther from the float32 plain forward than the bf16
+   plain forward does;
 5. both flash kernels against their plain version through ``ops.attention``
    (see :func:`check_flash` for the tolerances): bf16 (the sm90 ``wgmma``
    kernel) and float32 (the CUDA-core kernel) at the LM path's shape and at
    the reference's six test shapes (GQA, rectangular, single-token,
-   ragged, non-causal); then the times at the LM shape of the sm90 kernel
-   and of the plain version on bf16 inputs, of SDPA on the same (a
-   yardstick the port never calls), and of the CUDA-core kernel on
+   ragged, non-causal); then the times at the LM shape of the sm90 kernel,
+   the plain version and SDPA (a yardstick the port never calls) on bf16
+   inputs, and of the CUDA-core kernel, the plain version and SDPA on
    float32 ones.
 
 Between phases 3 and 4 run the two paths added after them:
@@ -70,7 +79,10 @@ Between phases 3 and 4 run the two paths added after them:
     array. Then both codec kernels against their plain versions at that
     shape and on adversarial blocks (see :func:`codec_blocks`; and 1, 7
     and 5,000 blocks drawn from them), exact in all six encode outputs and
-    the decoded bits.
+    the decoded bits; and the decode on streams encode never writes
+    (:func:`decode_malformed`: repeated live exception slots, which sum,
+    positions and counts out of range, unknown widths), exact against the
+    plain version.
 
 Every line is one JSON object. The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
@@ -96,12 +108,13 @@ ROOT = Path(__file__).resolve().parent
 FULL_N_TRAJ = 1_710_670          # ECML/PKDD 2015 taxi-trajectory challenge trips
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak (data sheet)
+FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores (data sheet)
 KERNEL_LIBS = ("fp_delta_decode", "segminmax_refine", "page_minmax", "flash_attention",
                "flash_attention_sm90", "miniblock")
 FILE_KERNELS = ("fp_delta.decode_stream", "minmax.segminmax_refine", "minmax.page_minmax")
 CODEC_KERNELS = ("fp_delta.encode_blocks", "fp_delta.decode_blocks")
 LM_KERNELS = ("flash_attention.flash_attention_sm90",)
-F32_FLASH = "flash_attention.flash_attention_f32"   # the float32 route: phase 5 only
+F32_FLASH = "flash_attention.flash_attention_f32"   # the float32 route: its own forward
 DATASET_SHARDS = 16            # ~107 k trips, ~5 M points a shard: a typical lake file
 DATASET_WORKERS = 4
 LM_CONFIG = "qwen3-8b"
@@ -242,6 +255,33 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2):
+    """Device time per call of ``fn``: the durations of the kernels and
+    memsets it launched, summed over a ``torch.profiler`` trace of
+    ``iters`` back-to-back calls. Beside :func:`cuda_ms` (events around
+    the same calls), it splits device time from host dispatch. A trace that
+    shows no device activity is taken again, twice at most; then the time
+    is None ("not measured") and a line says so."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    emit({"device_ms": "not measured: three profiler traces showed no device activity"})
+    return None
 
 
 def read_split(tracer, wall_s: float) -> dict:
@@ -405,6 +445,28 @@ def adversarial_pages_minmax(rng):
     return v, bounds
 
 
+def minmax_page_cases(rng) -> list[tuple[str, np.ndarray, np.ndarray]]:
+    """Kernel 3's large-page cases as (name, float32 values, int64 bounds): a
+    single page of 1<<20 values, 10,000 empty pages among 400 real ones
+    (with NaN, ±0, ±inf and denormals), bounds that start and end off
+    16-byte boundaries with ±0 in both orders."""
+    tiny = np.finfo(np.float32).smallest_subnormal
+    out = []
+    v = rng.normal(-3, 1e3, 1 << 20).astype(np.float32)
+    out.append(("one_page_1M", v, np.array([0, v.size], np.int64)))
+    sizes = np.zeros(10_400, np.int64)
+    sizes[rng.choice(sizes.size, 400, replace=False)] = rng.integers(1, 6000, 400)
+    v = rng.normal(5, 1e2, int(sizes.sum())).astype(np.float32)
+    v[rng.integers(0, v.size, 300)] = np.array([np.nan, -0.0, 0.0, tiny, -tiny, np.inf],
+                                               np.float32)[rng.integers(0, 6, 300)]
+    out.append(("empty_10000", v, np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)))
+    v = rng.normal(0, 1, 70_001).astype(np.float32)
+    v[[5, 9, 4099, 4100]] = [-0.0, 0.0, 0.0, -0.0]
+    out.append(("misaligned_bounds", v,
+                np.array([3, 9, 4098, 4101, 4101, 30_001, 69_998], np.int64)))
+    return out
+
+
 def anchor_free_plan(rng, dtype, n: int):
     """One fp_delta page of ``n`` values whose bit patterns step by at most
     3000: no escapes, so its first value is its only anchor and the
@@ -523,12 +585,13 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
                     + stream.nbits.reshape(-1)[:n]).max())
     words_used = -(-last_bit // 32) * 4
     k_ms = cuda_ms(lambda: fk.decode_stream(*args))
+    k_dev = device_ms(lambda: fk.decode_stream(*args))
     p_ms = cuda_ms(lambda: fr.decode_stream_ref(*args), iters=3, warmup=1)
     bytes_moved = words_used + 12 * n + n * ds.width // 8
     table.append(dict(name="fp_delta.decode_stream", route="cuda",
                       source="src/repro_torch/csrc/fp_delta_decode.cu",
                       replaces="src/repro/kernels/fp_delta/kernel.py:159",
-                      mismatches=bad, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                      mismatches=bad, max_abs_err=err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                       bytes=bytes_moved, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
                       bound_by="bytes", library_ms=None,
                       shape={"values": n, "positions": int(ds.tok_off.numel()),
@@ -556,36 +619,60 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
     rargs = rcases[0][1]
     n_rec = int(rargs[3].shape[0])
     k_ms = cuda_ms(lambda: mk.segminmax_refine(*rargs))
+    k_dev = device_ms(lambda: mk.segminmax_refine(*rargs))
     p_ms = cuda_ms(lambda: mr.segminmax_refine_ref(*rargs), iters=3, warmup=1)
     vals = 2 * int(aux.counts.sum())
     bytes_moved = vals * ds.width // 8 + n_rec * (8 * 3 + 1) + n_rec * (1 + 32)
     table.append(dict(name="minmax.segminmax_refine", route="cuda",
                       source="src/repro_torch/csrc/segminmax_refine.cu",
                       replaces="src/repro/kernels/minmax/kernel.py:93",
-                      mismatches=bad, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                      mismatches=bad, max_abs_err=err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                       bytes=bytes_moved, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
                       bound_by="bytes", library_ms=None,
                       shape={"records": n_rec, "values": vals, "width": ds.width}))
 
     # ---- kernel 3: per-page min/max of a float32 column
     pcases = [("main", dur, ebounds), ("adversarial", *adversarial_pages_minmax(rng))]
+    pcases += minmax_page_cases(rng)
     bad, err = 0, 0.0
-    tensors = []
-    for name, v, b in pcases:
-        vt = torch.from_numpy(np.ascontiguousarray(v)).to(DEVICE)
-        bt = torch.from_numpy(b).to(DEVICE)
-        tensors.append((vt, bt))
-        kmn, kmx = mk.page_minmax(vt, bt)
+    held_pairs = []
+
+    def held_pages(name, vt, bt, got) -> None:
+        nonlocal bad, err
         pmn, pmx = mr.page_minmax_ref(vt, bt)
-        torch.cuda.synchronize()
-        m1, e1 = mismatches(kmn, pmn)
-        m2, e2 = mismatches(kmx, pmx)
-        emit({"check": "minmax.page_minmax", "case": name, "pages": len(b) - 1,
-              "values": len(v), "mismatches": m1 + m2})
+        m1, e1 = mismatches(got[0], pmn)
+        m2, e2 = mismatches(got[1], pmx)
+        emit({"check": "minmax.page_minmax", "case": name, "pages": int(bt.numel()) - 1,
+              "values": int(vt.numel()), "mismatches": m1 + m2})
         bad, err = bad + m1 + m2, max(err, e1, e2)
-    vt, bt = tensors[0]
+
+    for name, v, b in pcases:
+        bt = torch.from_numpy(b).to(DEVICE)
+        # the values pointer 0, 4 and 12 bytes off a 16-byte boundary
+        for off in (0,) if name == "main" else (0, 1, 3):
+            buf = torch.empty(len(v) + off, dtype=torch.float32, device=DEVICE)
+            buf[off:] = torch.from_numpy(np.ascontiguousarray(v))
+            vt = buf[off:]
+            got = mk.page_minmax(vt, bt)
+            torch.cuda.synchronize()
+            held_pages(f"{name}_off{off}" if name != "main" else name, vt, bt, got)
+            if off == 0:
+                held_pairs.append((name, vt, bt))
+    # calls queued back to back, then four threads at once, three rounds
+    outs = [mk.page_minmax(vt, bt) for _, vt, bt in held_pairs]
+    torch.cuda.synchronize()
+    for (name, vt, bt), got in zip(held_pairs, outs):
+        held_pages(f"back_to_back_{name}", vt, bt, got)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for r in range(3):
+            outs = list(pool.map(lambda c: mk.page_minmax(c[1], c[2]), held_pairs))
+            torch.cuda.synchronize()
+            for (name, vt, bt), got in zip(held_pairs, outs):
+                held_pages(f"four_threads_round{r}_{name}", vt, bt, got)
+    vt, bt = held_pairs[0][1:]
     lengths = bt[1:] - bt[:-1]
     k_ms = cuda_ms(lambda: mk.page_minmax(vt, bt))
+    k_dev = device_ms(lambda: mk.page_minmax(vt, bt))
     p_ms = cuda_ms(lambda: mr.page_minmax_ref(vt, bt))
     l_ms = cuda_ms(lambda: (torch.segment_reduce(vt, "min", lengths=lengths),
                             torch.segment_reduce(vt, "max", lengths=lengths)))
@@ -594,7 +681,7 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
     table.append(dict(name="minmax.page_minmax", route="cuda",
                       source="src/repro_torch/csrc/page_minmax.cu",
                       replaces="src/repro/kernels/minmax/kernel.py:53",
-                      mismatches=bad, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                      mismatches=bad, max_abs_err=err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                       bytes=bytes_moved, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
                       bound_by="bytes", library_ms=l_ms,
                       shape={"values": len(dur), "pages": n_pages}))
@@ -812,6 +899,47 @@ def codec_blocks(rng) -> list[tuple[str, np.ndarray, tuple | None]]:
     return cases
 
 
+def decode_malformed(enc, rng) -> list[tuple[str, list]]:
+    """Decode inputs that encode never writes, cut from six encoded blocks
+    ``enc``: repeated live exception slots (three on one position, a pair
+    whose sum wraps, all 64 on one position), positions -1, 1024, 65535 and
+    -2^31, exception counts -1, 0, 64 and 255 over random slots with ten
+    repeats, and widths outside the format (5, 33, -1, 7, 255)."""
+    import torch
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int64).astype(np.int32), device=DEVICE)
+
+    def fresh():
+        return [t[:6].clone() for t in enc]
+
+    out = []
+    a = fresh()
+    a[3][0, :5] = i32([17, 17, 17, 900, 900])
+    a[4][0, :5] = i32([5, 9, -2, 2 ** 31 - 1, 2 ** 31 - 1])
+    a[5][0] = 5
+    a[3][1, :] = 3
+    a[4][1, :] = i32(rng.integers(-2 ** 31, 2 ** 31, 64))
+    a[5][1] = 64
+    out.append(("repeated_slots", a))
+    a = fresh()
+    a[3][2, :6] = i32([-1, 1024, 65535, 0, 1023, -2 ** 31])
+    a[4][2, :6] = i32(rng.integers(-2 ** 31, 2 ** 31, 6))
+    a[5][2] = 6
+    out.append(("positions_out_of_range", a))
+    for c in (-1, 0, 64, 255):
+        a = fresh()
+        a[3][:] = i32(rng.integers(0, 1024, (6, 64)))
+        a[3][:, 10:20] = 500
+        a[4][:] = i32(rng.integers(-2 ** 31, 2 ** 31, (6, 64)))
+        a[5][:] = c
+        out.append((f"count_{c}", a))
+    a = fresh()
+    a[1][:] = i32([5, 33, -1, 7, 255, 32])
+    out.append(("widths_outside_format", a))
+    return out
+
+
 def check_codec(codec: dict) -> list[dict]:
     """Both codec kernels against their plain versions at the codec path's
     shape and on :func:`codec_blocks`; exact equality, then times."""
@@ -856,10 +984,19 @@ def check_codec(codec: dict) -> list[dict]:
         bad_e, bad_d = bad_e + me, bad_d + md
     n = int(main_blocks.shape[0])
     enc = fk.encode_blocks(main_blocks)
+    # streams outside encode's contract: the kernel sums repeated live
+    # slots as the plain version (and the reference) does
+    for name, args in decode_malformed(enc, np.random.default_rng(13)):
+        m, e = mismatches(fk.decode_blocks(*args), fr.decode_blocks_ref(*args))
+        emit({"check": "fp_delta.decode_malformed", "case": name, "blocks": 6,
+              "mismatches": m})
+        bad_d, err_d = bad_d + m, max(err_d, e)
     widths, counts = enc[1].to(torch.int64), enc[5].to(torch.int64)
     e_ms = cuda_ms(lambda: fk.encode_blocks(main_blocks))
+    e_dev = device_ms(lambda: fk.encode_blocks(main_blocks))
     ep_ms = cuda_ms(lambda: fr.encode_blocks_ref(main_blocks), iters=3, warmup=1)
     d_ms = cuda_ms(lambda: fk.decode_blocks(*enc))
+    d_dev = device_ms(lambda: fk.decode_blocks(*enc))
     dp_ms = cuda_ms(lambda: fr.decode_blocks_ref(*enc), iters=3, warmup=1)
     # encode: 4 B a value in; packed words, three int32 scalars and 2 x 64 slots out
     e_bytes = n * (4096 + 4096 + 12 + 2 * 64 * 4)
@@ -870,10 +1007,10 @@ def check_codec(codec: dict) -> list[dict]:
     row = dict(route="cuda", source="src/repro_torch/csrc/miniblock.cu", library_ms=None,
                bound_by="bytes", shape=shape)
     return [dict(row, name=CODEC_KERNELS[0], replaces="src/repro/kernels/fp_delta/kernel.py:102",
-                 mismatches=bad_e, max_abs_err=err_e, ms=e_ms,
+                 mismatches=bad_e, max_abs_err=err_e, ms=e_ms, device_ms=e_dev,
                  plain_ms=ep_ms, bytes=e_bytes, bound_ms=e_bytes / HBM_BYTES_PER_S * 1e3),
             dict(row, name=CODEC_KERNELS[1], replaces="src/repro/kernels/fp_delta/kernel.py:233",
-                 mismatches=bad_d, max_abs_err=err_d, ms=d_ms,
+                 mismatches=bad_d, max_abs_err=err_d, ms=d_ms, device_ms=d_dev,
                  plain_ms=dp_ms, bytes=d_bytes, bound_ms=d_bytes / HBM_BYTES_PER_S * 1e3)]
 
 
@@ -1066,7 +1203,33 @@ def lm_path(args, counters) -> dict:
                         "tolerance_rel": tol / float(plain.float().abs().max())}})
     require(flash_plain["max_abs"] <= tol,
             f"flash logits differ from the plain path by {flash_plain['max_abs']} > {tol}")
-    del flash, plain, full
+    del flash, plain
+
+    # the float32 route: the same forward in float32 compute with the flash
+    # kernel, every count set to 0 just before; it launches the CUDA-core
+    # kernel once a layer and must lie no farther from the float32 plain
+    # forward than the bf16 plain forward does
+    f32_flash_model = build_model(dataclasses.replace(base, attn_impl="flash", dtype="float32"))
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    f32_flash, _, _ = f32_flash_model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    f32_flash_s = time.perf_counter() - t0
+    f32_launches = {c.kname: c.launches for c in counters}
+    require(f32_launches[F32_FLASH] == base.n_layers and f32_launches[LM_KERNELS[0]] == 0,
+            f"the float32 forward launched {f32_launches[F32_FLASH]} float32 and "
+            f"{f32_launches[LM_KERNELS[0]]} bf16 flash kernels, expected {base.n_layers} and 0")
+    require(f32_flash.dtype == torch.float32 and bool(torch.isfinite(f32_flash).all()),
+            f"the float32 flash forward gave {f32_flash.dtype} or non-finite logits")
+    f32_route = {"forward_s": f32_flash_s, "launches": f32_launches,
+                 "vs_float32_plain": diff_stats(f32_flash, full),
+                 "tolerance_max_abs": plain_f32["max_abs"]}
+    emit({"lm_float32_route": f32_route})
+    require(f32_route["vs_float32_plain"]["max_abs"] <= plain_f32["max_abs"],
+            f"float32 flash logits differ from the float32 plain forward by "
+            f"{f32_route['vs_float32_plain']['max_abs']} > {plain_f32['max_abs']}")
+    del f32_flash, full
 
     noise = plain_f32["max_abs"]
     exact, worst = 0, 0.0
@@ -1081,11 +1244,11 @@ def lm_path(args, counters) -> dict:
                               f"forward's argmax, beyond the bf16 noise {noise}")
     first = {"exact": exact, "of": len(done), "largest_gap": worst, "allowed_gap": noise}
     peak = torch.cuda.max_memory_allocated()
-    del params, model, plain_model, f32_model
+    del params, model, plain_model, f32_model, f32_flash_model
     torch.cuda.empty_cache()
     return {"config": LM_CONFIG, "n_params": n_params, "param_bytes": param_bytes,
             "init_s": init_s, "forward_s": forward_s, "forward_tokens": LM_BATCH * LM_SEQ,
-            "plain_forward_s": plain_s, "float32_forward_s": f32_s,
+            "plain_forward_s": plain_s, "float32_forward_s": f32_s, "float32_route": f32_route,
             "forward_launches": fwd_launches, "launches": launches, "device_split": split,
             "serve_check": {"requests": len(done),
                             "prompt_lens": [len(r.prompt) for r in
@@ -1106,7 +1269,7 @@ FLASH_SHAPES = [  # tests/test_kernels.py of the reference: (b, hq, hkv, sq, sk,
 ]
 
 
-def check_flash(seed: int) -> dict:
+def check_flash(seed: int) -> list[dict]:
     """Phase 5: both flash kernels against their plain version through
     ``ops.attention``, and their times at the LM path's shape.
 
@@ -1186,29 +1349,43 @@ def check_flash(seed: int) -> dict:
     k_ms = cuda_ms(lambda: kernel.flash_attention_sm90(q, k, v, causal=True), iters=20)
     l_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), iters=20)
     k_ms2 = cuda_ms(lambda: kernel.flash_attention_sm90(q, k, v, causal=True), iters=20)
+    k_dev = device_ms(lambda: kernel.flash_attention_sm90(q, k, v, causal=True))
     f32_ms = cuda_ms(lambda: kernel.flash_attention_f32(q32, k32, v32, causal=True), iters=5,
                      warmup=1)
+    f32_dev = device_ms(lambda: kernel.flash_attention_f32(q32, k32, v32, causal=True), iters=5,
+                        warmup=1)
+    f32_lib_ms = cuda_ms(lambda: sdpa(q32, k32, v32, is_causal=True, enable_gqa=True), iters=5,
+                         warmup=1)
     p_ms = cuda_ms(lambda: attention_plain(q, k, v), iters=3, warmup=1)
+    f32_p_ms = cuda_ms(lambda: attention_plain(q32, k32, v32), iters=3, warmup=1)
     b, hq, hkv, sq, sk, d, _ = main_shape
     pairs = sq * (sq + 1) // 2                 # visible (row, col) pairs per head, Sq = Sk
     flops = 2 * 2 * d * pairs * b * hq         # QK^T and P.V, a multiply and an add each
     bytes_moved = 2 * (2 * q.numel() + k.numel() + v.numel())   # bf16 q, k, v read; o written
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S, bytes_moved / HBM_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
+    # the float32 kernel: the same work on CUDA cores, float32 operands
+    f32_ops, f32_bytes = flops / FP32_FLOPS_PER_S, 2 * bytes_moved / HBM_BYTES_PER_S
     emit({"flash_attention_times_ms": {
-        "sm90_bf16": [k_ms, k_ms2], "cuda_cores_float32": f32_ms, "sdpa_bf16": l_ms, "plain_bf16": p_ms,
+        "sm90_bf16": [k_ms, k_ms2], "cuda_cores_float32": f32_ms, "sdpa_bf16": l_ms,
+        "sdpa_float32": f32_lib_ms, "plain_bf16": p_ms, "plain_float32": f32_p_ms,
         "bound": bound_ms, "shape": list(main_shape)}})
     require(bad[torch.float32] == 0, "the float32 flash kernel disagrees with its plain version")
-    return dict(name=LM_KERNELS[0], route="cuda",
-                source="src/repro_torch/csrc/flash_attention_sm90.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:82",
-                mismatches=bad[torch.bfloat16], max_abs_err=err[torch.bfloat16],
-                ms=min(k_ms, k_ms2), plain_ms=p_ms, bytes=bytes_moved,
-                flops=flops, bound_ms=bound_ms,
-                bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=l_ms,
-                library_max_abs_err=lib_err, tflops=flops / min(k_ms, k_ms2) / 1e9,
-                f32_route={"ms": f32_ms, "max_abs_err": err[torch.float32]},
-                shape={"b": b, "hq": hq, "hkv": hkv, "s": sq, "d": d, "dtype": "bfloat16"})
+    row = dict(route="cuda", replaces="src/repro/kernels/flash_attention/kernel.py:82", flops=flops)
+    shape = {"b": b, "hq": hq, "hkv": hkv, "s": sq, "d": d}
+    return [dict(row, name=LM_KERNELS[0], source="src/repro_torch/csrc/flash_attention_sm90.cu",
+                 mismatches=bad[torch.bfloat16], max_abs_err=err[torch.bfloat16],
+                 ms=min(k_ms, k_ms2), device_ms=k_dev, plain_ms=p_ms, bytes=bytes_moved,
+                 bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 library_ms=l_ms, library_max_abs_err=lib_err,
+                 tflops=flops / min(k_ms, k_ms2) / 1e9, shape=dict(shape, dtype="bfloat16")),
+            dict(row, name=F32_FLASH, source="src/repro_torch/csrc/flash_attention.cu",
+                 mismatches=bad[torch.float32], max_abs_err=err[torch.float32], ms=f32_ms,
+                 device_ms=f32_dev, plain_ms=f32_p_ms, bytes=2 * bytes_moved,
+                 bound_ms=max(f32_ops, f32_bytes) * 1e3,
+                 bound_by="operations" if f32_ops >= f32_bytes else "bytes",
+                 library_ms=f32_lib_ms, tflops=flops / f32_ms / 1e9,
+                 shape=dict(shape, dtype="float32"))]
 
 
 # ---------------------------------------------------------------- entry
@@ -1240,7 +1417,7 @@ def main() -> int:
     t_start = time.perf_counter()
     _build.build_all(KERNEL_LIBS)
     emit({"build_s": time.perf_counter() - t_start})
-    for lib in ("flash_attention_sm90", "fp_delta_decode", "miniblock"):   # the redesigned ones
+    for lib in ("flash_attention_sm90", "fp_delta_decode", "miniblock", "page_minmax"):
         ptxas = [ln.strip() for ln in _build.logs.get(lib, "").splitlines()
                  if any(w in ln for w in ("entry function", "spill", "Used", "arning"))]
         if ptxas:
@@ -1282,22 +1459,22 @@ def main() -> int:
     lm = lm_path(args, counters)
     lm["wall_s"] = time.perf_counter() - t0
     emit({"lm_path": lm})
-    table.append(check_flash(args.seed))
+    table += check_flash(args.seed)
     launches = {**{n: main["launches"][n] for n in FILE_KERNELS},
                 **{n: codec_launches[n] for n in CODEC_KERNELS},
-                **{n: lm["launches"][n] for n in LM_KERNELS}}
+                **{n: lm["launches"][n] for n in LM_KERNELS},
+                F32_FLASH: lm["float32_route"]["launches"][F32_FLASH]}
     for row in table:
         emit({"kernel": row["name"], "mismatches": row["mismatches"],
-              "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+              "kernel_ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
               "library_ms": row["library_ms"], "launches": launches[row["name"]],
               "shape": row["shape"], "bytes": row["bytes"]})
     for row in table:
         require(row["mismatches"] == 0, f"{row['name']}: kernel disagrees with its plain version")
-    flash = table[-1]
+    flash = next(r for r in table if r["name"] == LM_KERNELS[0])
     emit({"flash_attention_rate": {"tflops": flash["tflops"],
                                    "share_of_bound": flash["bound_ms"] / flash["ms"],
-                                   "sdpa_max_abs_err_vs_plain": flash["library_max_abs_err"],
-                                   "float32_route": flash["f32_route"]}})
+                                   "sdpa_max_abs_err_vs_plain": flash["library_max_abs_err"]}})
     emit({"total_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

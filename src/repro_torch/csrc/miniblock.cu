@@ -13,8 +13,9 @@
 // into the block's first 32*w words (later words 0), and the first 64
 // deltas wider than w bits as (position, zigzag) exception slots (unused
 // slots 0). The payload keeps an exception's low w bits. Decode: unpack at
-// w, overwrite the exception positions, un-zigzag, inclusive prefix sum
-// mod 2^32, add the anchor.
+// w (a width outside the format unpacks as zeros), replace each position
+// that live exception slots hit by the sum of their values, un-zigzag,
+// inclusive prefix sum mod 2^32, add the anchor.
 //
 // What bounds them on the H100. Encode reads 4 bytes a value and writes
 // the dense outputs (4 bytes a value of packed words plus about 0.5 of
@@ -44,23 +45,32 @@
 // known at compile time (one instantiation per width); the words are
 // staged in the spent ring stage (16-byte units swizzled against bank
 // conflicts) and stored coalesced, 16 bytes a lane.
-// Decode: one block of 256 threads per miniblock, four values a thread,
-// stored as 16-byte vectors; each value is extracted from a two-word
-// window into shared memory, the exceptions overwrite their positions,
-// and a block scan in uint32 does the prefix sum.
+// Decode: the same shape. One warp per miniblock, persistent warps, and a
+// 3-stage ring per warp: lane k of a warp loads the scalars (width,
+// exception count, anchor) of the warp's k-th next block, so the copies
+// need no dependent load first, and lane 0 issues each block's copies
+// two blocks ahead: only the 128 * w valid payload bytes and the live
+// prefixes of the exception rows (rounded up to 16 bytes), completing on
+// the stage's mbarrier; w = 0, a width outside the format and no live slot
+// arrive with no transaction bytes. Lane l unpacks its values 32l..32l+31
+// from its own words [l*w, l*w + w) with shifts known at compile time (the
+// inverse of pack_stage<W>). Live exception slots (slot < count, position
+// in [0, 1024)) replace a position by the sum of their values mod 2^32, as
+// the reference's inject_exceptions does: hit positions are zeroed in the
+// stage, then the values are added with shared-memory atomics, whose order
+// does not matter. Un-zigzag, a serial inclusive sum over the lane's 32
+// values and a warp scan of the lane totals give the prefix sum; the
+// outputs are staged swizzled in the spent stage and stored coalesced.
 // The TPU kernels' six packings combined by a masked sum and their
 // one-hot exception contractions are dropped. All arithmetic is uint32:
 // signed overflow is undefined in C++, and shifts by 32 are avoided.
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <cub/block/block_scan.cuh>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kBlock = kThreads * kItems;  // MINIBLOCK
+constexpr int kBlock = 1024;  // MINIBLOCK
 constexpr int kMaxExc = 64;
 constexpr int kExcBits = 48;
 constexpr int kNumCand = 12;
@@ -69,12 +79,6 @@ constexpr unsigned long long kValidWidths =
     (1ull << 0) | (1ull << 1) | (1ull << 2) | (1ull << 3) | (1ull << 4) | (1ull << 6) |
     (1ull << 8) | (1ull << 10) | (1ull << 12) | (1ull << 16) | (1ull << 20) |
     (1ull << 24) | (1ull << 32);
-
-__device__ __forceinline__ uint32_t width_mask(int w) {
-  return w >= 32 ? 0xFFFFFFFFu : ((1u << w) - 1u);
-}
-
-using U32ScanT = cub::BlockScan<uint32_t, kThreads>;
 
 // ---------------------------------------------------------------- encode
 // One warp per miniblock, persistent: warp g of G encodes blocks g, g + G,
@@ -110,6 +114,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// bytes (a multiple of 16) global -> shared by the bulk-copy engine,
+// completing on the mbarrier at shared address bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // One miniblock (4 KB) global -> shared by the bulk-copy engine.
 __device__ __forceinline__ void fetch_block(uint32_t* dst, const uint32_t* src,
                                             unsigned long long* bar) {
@@ -117,10 +131,7 @@ __device__ __forceinline__ void fetch_block(uint32_t* dst, const uint32_t* src,
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
                "r"(kBlockBytes)
                : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(kBlockBytes), "r"(b)
-      : "memory");
+  bulk_copy(dst, src, kBlockBytes, b);
 }
 
 // #candidates (0, 1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24) below nb, for nb in [0, 32]
@@ -336,60 +347,253 @@ encode_kernel(const uint32_t* __restrict__ x, int n_blocks, int32_t* __restrict_
 }
 
 // ---------------------------------------------------------------- decode
-__global__ void __launch_bounds__(kThreads)
+// One warp per miniblock, persistent: warp g of G decodes blocks g, g + G,
+// ... Each warp keeps a 3-stage ring: a stage holds the block's valid
+// payload words (128 * w bytes) and the live prefixes of its exception
+// rows, copied by the bulk-copy engine two blocks ahead. Lane l's values
+// 32l..32l+31 start at bit 32l * w, so they lie in its own words
+// [l*w, l*w + w) and unpack with shifts known at compile time.
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecStages = 3;
+
+struct __align__(16) DecWarpSmem {
+  uint32_t ring[kDecStages][kBlock];       // payload words in; staged output out
+  int32_t exc[kDecStages][2][kMaxExc];     // live exception positions, values
+  unsigned long long full[kDecStages];     // one mbarrier per ring stage
+};
+constexpr int kDecSmem = kDecWarps * static_cast<int>(sizeof(DecWarpSmem));
+
+__device__ __forceinline__ bool known_width(int w) {
+  return w >= 0 && w <= 32 && ((kValidWidths >> w) & 1ull);
+}
+
+// Live exception slots: slot < count, the count taken as is (above 64 all
+// slots are live, at 0 or below none).
+__device__ __forceinline__ int live_slots(int count) {
+  return count <= 0 ? 0 : count >= kMaxExc ? kMaxExc : count;
+}
+
+// Lane 0: the copies of block blk (width w, as is; exception count cnt)
+// into one stage. A block with nothing to copy (w = 0 or outside the
+// format, no live slot) arrives with no transaction bytes.
+__device__ __forceinline__ void fetch_decode(DecWarpSmem& ws, int s, long long blk, int w, int cnt,
+                                             const uint32_t* __restrict__ packed,
+                                             const int32_t* __restrict__ exc_idx,
+                                             const int32_t* __restrict__ exc_val) {
+  const uint32_t bar = smem_u32(&ws.full[s]);
+  const uint32_t pay = known_width(w) ? 128u * static_cast<uint32_t>(w) : 0u;
+  const uint32_t exc = (static_cast<uint32_t>(live_slots(cnt)) * 4u + 15u) & ~15u;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(pay + 2u * exc)
+               : "memory");
+  if (pay) bulk_copy(ws.ring[s], packed + blk * kBlock, pay, bar);
+  if (exc) {
+    bulk_copy(ws.exc[s][0], exc_idx + blk * kMaxExc, exc, bar);
+    bulk_copy(ws.exc[s][1], exc_val + blk * kMaxExc, exc, bar);
+  }
+}
+
+// Lane-local unpacking at width W: the exact inverse of pack_stage<W>.
+// The lane's W words are read from the stage as 16- or 8-byte vectors
+// where W allows.
+template <int W>
+__device__ __forceinline__ void unpack_stage(const uint32_t* __restrict__ stage, int lane,
+                                             uint32_t (&z)[32]) {
+  uint32_t words[W];
+  const uint32_t* src = stage + lane * W;
+  if (W % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < W; i += 4) {
+      const uint4 t = *reinterpret_cast<const uint4*>(src + i);
+      words[i] = t.x;
+      words[i + 1] = t.y;
+      words[i + 2] = t.z;
+      words[i + 3] = t.w;
+    }
+  } else if (W % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < W; i += 2) {
+      const uint2 t = *reinterpret_cast<const uint2*>(src + i);
+      words[i] = t.x;
+      words[i + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) words[i] = src[i];
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int j = (k * W) >> 5;
+    const int s = (k * W) & 31;
+    uint32_t v = words[j] >> s;
+    if (s + W > 32) v |= words[j + 1] << (32 - s);
+    z[k] = W == 32 ? v : (v & ((1u << (W % 32)) - 1u));
+  }
+}
+
+__global__ void __launch_bounds__(kDecThreads)
 decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ widths,
               const int32_t* __restrict__ anchors, const int32_t* __restrict__ exc_idx,
               const int32_t* __restrict__ exc_val, const int32_t* __restrict__ exc_count,
-              uint32_t* __restrict__ out) {
-  __shared__ uint32_t ws[kBlock];
-  __shared__ uint32_t zs[kBlock];
-  __shared__ typename U32ScanT::TempStorage scan_temp;
+              int n_blocks, uint32_t* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  DecWarpSmem& ws = reinterpret_cast<DecWarpSmem*>(smem)[threadIdx.x >> 5];
+  const long long g = static_cast<long long>(blockIdx.x) * kDecWarps + (threadIdx.x >> 5);
+  const long long step = static_cast<long long>(gridDim.x) * kDecWarps;
+  if (g >= n_blocks) return;
+  const int n_mine = static_cast<int>((n_blocks - 1 - g) / step) + 1;  // blocks of this warp
 
-  const long long blk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int t0 = tid * kItems;
-  // a width outside the format unpacks as zeros, as the reference's
-  // select over the packing widths does
-  const int w_in = widths[blk];
-  const int w = (w_in >= 0 && w_in <= 32 && ((kValidWidths >> w_in) & 1ull)) ? w_in : 0;
-  const int n_words = 32 * w;  // payload words of this block
-  for (int j = tid; j < n_words; j += kThreads) ws[j] = packed[blk * kBlock + j];
-  __syncthreads();
-
-  const uint32_t mask = width_mask(w);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int t = t0 + k;
-    uint32_t v = 0;
-    if (w > 0) {
-      const int o = t * w;
-      const int j = o >> 5;
-      const int s = o & 31;
-      v = ws[j] >> s;
-      if (s + w > 32) v |= ws[j + 1] << (32 - s);
-      v &= mask;
+  // Scalars ahead: lane k holds the scalars of this warp's iteration
+  // 32c + k, for the current chunk c (cur) and the next one (nxt).
+  auto scalars = [&](int chunk, int& w, int& cnt, int& a) {
+    const int it = 32 * chunk + lane;
+    w = cnt = a = 0;
+    if (it < n_mine) {
+      const long long b = g + it * step;
+      w = widths[b];
+      cnt = exc_count[b];
+      a = anchors[b];
     }
-    zs[t] = v;
-  }
-  __syncthreads();
+  };
+  int cw, cc, ca, nw, nc, na;
+  scalars(0, cw, cc, ca);
+  scalars(1, nw, nc, na);
 
-  const int count = exc_count[blk];
-  if (tid < count && tid < kMaxExc) {
-    const int pos = exc_idx[blk * kMaxExc + tid];
-    if (pos >= 0 && pos < kBlock) zs[pos] = static_cast<uint32_t>(exc_val[blk * kMaxExc + tid]);
+  if (lane == 0) {
+    for (int s = 0; s < kDecStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&ws.full[s]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-
-  uint32_t d[kItems];
+  __syncwarp();
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const uint32_t z = zs[t0 + k];
-    d[k] = (z >> 1) ^ (0u - (z & 1u));
+  for (int j = 0; j < kDecStages - 1; ++j) {
+    const int w = __shfl_sync(0xFFFFFFFFu, cw, j);
+    const int cnt = __shfl_sync(0xFFFFFFFFu, cc, j);
+    if (lane == 0 && j < n_mine)
+      fetch_decode(ws, j, g + j * step, w, cnt, packed, exc_idx, exc_val);
   }
-  U32ScanT(scan_temp).InclusiveSum(d, d);  // uint32: wraps mod 2^32
-  const uint32_t a = static_cast<uint32_t>(anchors[blk]);
-  reinterpret_cast<uint4*>(out + blk * kBlock)[tid] =
-      make_uint4(a + d[0], a + d[1], a + d[2], a + d[3]);
+
+  for (int it = 0; it < n_mine; ++it) {
+    const long long blk = g + it * step;
+    const int s = it % kDecStages;
+    if (it > 0 && (it & 31) == 0) {
+      cw = nw;
+      cc = nc;
+      ca = na;
+      scalars((it >> 5) + 1, nw, nc, na);
+    }
+    // the copy two blocks ahead; its stage was released at the end of the
+    // last iteration
+    {
+      const int j = it + kDecStages - 1;
+      const bool same = (j >> 5) == (it >> 5);
+      const int fw = __shfl_sync(0xFFFFFFFFu, same ? cw : nw, j & 31);
+      const int fc = __shfl_sync(0xFFFFFFFFu, same ? cc : nc, j & 31);
+      if (lane == 0 && j < n_mine)
+        fetch_decode(ws, j % kDecStages, g + j * step, fw, fc, packed, exc_idx, exc_val);
+    }
+    const int w_in = __shfl_sync(0xFFFFFFFFu, cw, it & 31);
+    const int count = __shfl_sync(0xFFFFFFFFu, cc, it & 31);
+    const uint32_t anchor = static_cast<uint32_t>(__shfl_sync(0xFFFFFFFFu, ca, it & 31));
+    mbar_wait(smem_u32(&ws.full[s]), (it / kDecStages) & 1);
+
+    uint32_t* stage = ws.ring[s];
+    uint32_t z[32];
+    // a width outside the format unpacks as zeros, as the reference's
+    // select over the packing widths does
+    switch (known_width(w_in) ? w_in : 0) {
+      case 1: unpack_stage<1>(stage, lane, z); break;
+      case 2: unpack_stage<2>(stage, lane, z); break;
+      case 3: unpack_stage<3>(stage, lane, z); break;
+      case 4: unpack_stage<4>(stage, lane, z); break;
+      case 6: unpack_stage<6>(stage, lane, z); break;
+      case 8: unpack_stage<8>(stage, lane, z); break;
+      case 10: unpack_stage<10>(stage, lane, z); break;
+      case 12: unpack_stage<12>(stage, lane, z); break;
+      case 16: unpack_stage<16>(stage, lane, z); break;
+      case 20: unpack_stage<20>(stage, lane, z); break;
+      case 24: unpack_stage<24>(stage, lane, z); break;
+      case 32: unpack_stage<32>(stage, lane, z); break;
+      default:
+#pragma unroll
+        for (int k = 0; k < 32; ++k) z[k] = 0;
+        break;
+    }
+    __syncwarp();  // the payload is read: the stage now holds zigzags, then outputs
+
+    const int live = live_slots(count);
+    if (live > 0) {
+      // exceptions as the reference's inject_exceptions: a position hit by
+      // live slots takes the sum of their values mod 2^32. The zigzags go
+      // through the stage (swizzled 16-byte units); hit positions are
+      // zeroed, then the values added (uint32 addition commutes, so the
+      // result does not depend on the order of the atomics).
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        *reinterpret_cast<uint4*>(stage + swz(32 * lane + 4 * q)) =
+            make_uint4(z[4 * q], z[4 * q + 1], z[4 * q + 2], z[4 * q + 3]);
+      __syncwarp();
+      int pos[2];
+      uint32_t val[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int slot = lane + 32 * h;
+        pos[h] = slot < live ? ws.exc[s][0][slot] : -1;
+        val[h] = slot < live ? static_cast<uint32_t>(ws.exc[s][1][slot]) : 0u;
+        if (pos[h] >= 0 && pos[h] < kBlock) stage[swz(pos[h])] = 0u;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (pos[h] >= 0 && pos[h] < kBlock) atomicAdd(stage + swz(pos[h]), val[h]);
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const uint4 t = *reinterpret_cast<const uint4*>(stage + swz(32 * lane + 4 * q));
+        z[4 * q] = t.x;
+        z[4 * q + 1] = t.y;
+        z[4 * q + 2] = t.z;
+        z[4 * q + 3] = t.w;
+      }
+    }
+
+    // un-zigzag and the lane's inclusive sum, then a warp scan of the lane
+    // totals; all uint32, wrapping mod 2^32
+    uint32_t run = 0;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      run += (z[k] >> 1) ^ (0u - (z[k] & 1u));
+      z[k] = run;
+    }
+    uint32_t incl = run;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t up = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+      if (lane >= d) incl += up;
+    }
+    const uint32_t base = anchor + (incl - run);
+
+    // stage the outputs (each lane writes only its own units, which it
+    // alone read above), then store coalesced, 16 bytes a lane
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      *reinterpret_cast<uint4*>(stage + swz(32 * lane + 4 * q)) =
+          make_uint4(base + z[4 * q], base + z[4 * q + 1], base + z[4 * q + 2],
+                     base + z[4 * q + 3]);
+    __syncwarp();
+    uint4* row = reinterpret_cast<uint4*>(out + blk * kBlock);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int u = 32 * q + lane;
+      row[u] = reinterpret_cast<const uint4*>(stage)[u ^ ((u >> 3) & 7)];
+    }
+    // release the stage (payload and exception rows) to the bulk-copy engine
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+  }
 }
 
 }  // namespace
@@ -423,17 +627,29 @@ int mb_encode_blocks(const void* x, int n_blocks, void* packed, void* widths,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The six arrays of mb_encode_blocks in, n_blocks * 1024 uint32 patterns out.
+// The six arrays of mb_encode_blocks in (packed, exc_idx and exc_val
+// 16-byte aligned), n_blocks * 1024 uint32 patterns out.
 int mb_decode_blocks(const void* packed, const void* widths, const void* anchors,
                      const void* exc_idx, const void* exc_val, const void* exc_count,
                      int n_blocks, void* out, void* stream) {
-  if (n_blocks > 0) {
-    decode_kernel<<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(widths),
-        static_cast<const int32_t*>(anchors), static_cast<const int32_t*>(exc_idx),
-        static_cast<const int32_t*>(exc_val), static_cast<const int32_t*>(exc_count),
-        static_cast<uint32_t*>(out));
-  }
+  if (n_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaFuncSetAttribute(decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kDecSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel, kDecThreads, kDecSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long need = (static_cast<long long>(n_blocks) + kDecWarps - 1) / kDecWarps;
+  if (grid > need) grid = need;
+  decode_kernel<<<static_cast<int>(grid), kDecThreads, kDecSmem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(widths),
+      static_cast<const int32_t*>(anchors), static_cast<const int32_t*>(exc_idx),
+      static_cast<const int32_t*>(exc_val), static_cast<const int32_t*>(exc_count), n_blocks,
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], object] = {}
 logs: dict[str, str] = {}   # nvcc's output (ptxas registers, spills) of each source built here
 _count_lock = threading.Lock()
 
@@ -91,6 +92,18 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
     return lib
+
+
+def entry(name: str, fn_name: str, argtypes, restype=ctypes.c_int):
+    """The C entry point ``fn_name`` of ``csrc/<name>.cu`` with its signature
+    set, once: a wrapper called per page or per request pays a dict lookup."""
+    fn = _entries.get((name, fn_name))
+    if fn is None:
+        fn = getattr(load(name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _entries[(name, fn_name)] = fn
+    return fn
 
 
 def check(lib: ctypes.CDLL, prefix: str, err: int, what: str) -> None:

@@ -61,18 +61,16 @@ def decode_stream(words32, tok_off, nbits, anchor, width: int) -> torch.Tensor:
     n_blocks = shape[0]
     out = torch.empty(n_blocks * STREAM_BLOCK,
                       dtype=torch.int32 if width == 32 else torch.int64, device=dev)
-    lib = _build.load("fp_delta_decode")
-    lib.fpd_scratch_words.argtypes = [ctypes.c_int]
-    lib.fpd_scratch_words.restype = ctypes.c_longlong
+    words = _build.entry("fp_delta_decode", "fpd_scratch_words", [ctypes.c_int],
+                         ctypes.c_longlong)
     # the tile ticket and statuses, zeroed by the entry point on this stream
-    scratch = torch.empty(lib.fpd_scratch_words(n_blocks), dtype=torch.int64, device=dev)
-    fn = lib.fpd_decode_stream
-    fn.argtypes = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P]
-    fn.restype = ctypes.c_int
+    scratch = torch.empty(words(n_blocks), dtype=torch.int64, device=dev)
+    fn = _build.entry("fp_delta_decode", "fpd_decode_stream",
+                      [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P])
     err = fn(words32.data_ptr(), tok_off.data_ptr(), nbits.data_ptr(),
              anchor.data_ptr(), n_blocks, width, scratch.data_ptr(), out.data_ptr(),
              _stream(dev))
-    _build.check(lib, "fpd", err, "decode_stream launch")
+    _build.check(_build.load("fp_delta_decode"), "fpd", err, "decode_stream launch")
     _build.bump(decode_stream)
     return out
 
@@ -103,12 +101,9 @@ def encode_blocks(x: torch.Tensor):
     outs = (torch.empty((n, MINIBLOCK), **i32), torch.empty(n, **i32), torch.empty(n, **i32),
             torch.empty((n, MAX_EXC), **i32), torch.empty((n, MAX_EXC), **i32),
             torch.empty(n, **i32))
-    lib = _build.load("miniblock")
-    fn = lib.mb_encode_blocks
-    fn.argtypes = [_P, ctypes.c_int] + [_P] * 7
-    fn.restype = ctypes.c_int
+    fn = _build.entry("miniblock", "mb_encode_blocks", [_P, ctypes.c_int] + [_P] * 7)
     err = fn(x.data_ptr(), n, *(t.data_ptr() for t in outs), _stream(dev))
-    _build.check(lib, "mb", err, "encode_blocks launch")
+    _build.check(_build.load("miniblock"), "mb", err, "encode_blocks launch")
     _build.bump(encode_blocks)
     return outs
 
@@ -119,12 +114,14 @@ encode_blocks.launches = 0
 def decode_blocks(packed, widths, anchors, exc_idx, exc_val, exc_count) -> torch.Tensor:
     """Miniblock decode on the card -> (n_blocks, MINIBLOCK) float32.
 
-    Takes the six int32 arrays of :func:`encode_blocks`. Contract: on every
-    stream that :func:`encode_blocks` (or :func:`.ref.encode_blocks_ref`)
-    produces, the result equals :func:`.ref.decode_blocks_ref` bit for bit.
-    Exception slots are assumed to hold distinct positions, as encode
-    writes them; for duplicates the plain version sums the values (as the
-    reference does) while the kernel keeps one of them.
+    Takes the six int32 arrays of :func:`encode_blocks`; ``packed``,
+    ``exc_idx`` and ``exc_val`` must be 16-byte aligned (the kernel copies
+    their rows with the bulk-copy engine). The result equals
+    :func:`.ref.decode_blocks_ref` bit for bit on every input, streams that
+    encode never writes included: live exception slots (``slot <
+    exc_count``, position in ``[0, MINIBLOCK)``) that repeat a position sum
+    their values mod 2^32, as the reference's ``inject_exceptions`` does,
+    and a width outside the format unpacks as zeros.
     """
     dev = packed.device
     if dev.type != "cuda":
@@ -136,16 +133,16 @@ def decode_blocks(packed, widths, anchors, exc_idx, exc_val, exc_count) -> torch
                            (anchors, "anchors", (n,)), (exc_idx, "exc_idx", (n, MAX_EXC)),
                            (exc_val, "exc_val", (n, MAX_EXC)), (exc_count, "exc_count", (n,))):
         _check(t, name, torch.int32, dev, shape)
+    for t, name in ((packed, "packed"), (exc_idx, "exc_idx"), (exc_val, "exc_val")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if n >= 2 ** 31:
         raise ValueError(f"{n} blocks exceed the grid's 2^31 - 1")
     out = torch.empty((n, MINIBLOCK), dtype=torch.float32, device=dev)
-    lib = _build.load("miniblock")
-    fn = lib.mb_decode_blocks
-    fn.argtypes = [_P] * 6 + [ctypes.c_int, _P, _P]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("miniblock", "mb_decode_blocks", [_P] * 6 + [ctypes.c_int, _P, _P])
     err = fn(packed.data_ptr(), widths.data_ptr(), anchors.data_ptr(), exc_idx.data_ptr(),
              exc_val.data_ptr(), exc_count.data_ptr(), n, out.data_ptr(), _stream(dev))
-    _build.check(lib, "mb", err, "decode_blocks launch")
+    _build.check(_build.load("miniblock"), "mb", err, "decode_blocks launch")
     _build.bump(decode_blocks)
     return out
 

@@ -36,7 +36,9 @@ def page_minmax(values: torch.Tensor, bounds: torch.Tensor):
     """Per-page (min, max) float32 of ``values`` over ragged ``bounds``.
 
     ``values``: (n,) float32 CUDA tensor; ``bounds``: (P + 1,) int64 page
-    offsets on the same device. See :func:`.ref.page_minmax_ref`.
+    offsets on the same device, ``0 <= bounds[0] <= ... <= bounds[P] <= n``.
+    One launch; the two results are the rows of one (2, P) allocation.
+    See :func:`.ref.page_minmax_ref`.
     """
     dev = values.device
     if dev.type != "cuda":
@@ -46,17 +48,14 @@ def page_minmax(values: torch.Tensor, bounds: torch.Tensor):
     if values.dim() != 1 or bounds.dim() != 1 or bounds.shape[0] < 1:
         raise ValueError("values must be 1-D and bounds 1-D with >= 1 entry")
     n_pages = bounds.shape[0] - 1
-    out_min = torch.empty(n_pages, dtype=torch.float32, device=dev)
-    out_max = torch.empty(n_pages, dtype=torch.float32, device=dev)
-    lib = _build.load("page_minmax")
-    fn = lib.pmm_page_minmax
-    fn.argtypes = [_P, _P, ctypes.c_int, _P, _P, _P]
-    fn.restype = ctypes.c_int
+    out = torch.empty((2, n_pages), dtype=torch.float32, device=dev)
+    fn = _build.entry("page_minmax", "pmm_page_minmax", [_P, _P, ctypes.c_int, _P, _P, _P])
     err = fn(values.data_ptr(), bounds.data_ptr(), n_pages,
-             out_min.data_ptr(), out_max.data_ptr(), _stream(dev))
-    _build.check(lib, "pmm", err, "page_minmax launch")
+             out.data_ptr(), out.data_ptr() + 4 * n_pages, _stream(dev))
+    _build.check(_build.load("page_minmax"), "pmm", err, "page_minmax launch")
     _build.bump(page_minmax)
-    return out_min, out_max
+    mn, mx = out.unbind(0)
+    return mn, mx
 
 
 page_minmax.launches = 0
@@ -86,17 +85,15 @@ def segminmax_refine(bits, x_start, y_start, counts, valid, qkeys, width: int):
         raise ValueError(f"valid must have shape ({n},), got {tuple(valid.shape)}")
     keep = torch.empty(n, dtype=torch.bool, device=dev)
     mm = torch.empty((n, 4), dtype=torch.int64, device=dev)
-    lib = _build.load("segminmax_refine")
-    fn = lib.smm_refine
     u64 = ctypes.c_uint64
-    fn.argtypes = [_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
-                   u64, u64, u64, u64, _P, _P, _P]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("segminmax_refine", "smm_refine",
+                      [_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
+                       u64, u64, u64, u64, _P, _P, _P])
     qx0, qx1, qy0, qy1 = (int(q) for q in qkeys)
     err = fn(bits.data_ptr(), width, x_start.data_ptr(), y_start.data_ptr(),
              counts.data_ptr(), valid.data_ptr(), n, qx0, qx1, qy0, qy1,
              keep.data_ptr(), mm.data_ptr(), _stream(dev))
-    _build.check(lib, "smm", err, "segminmax_refine launch")
+    _build.check(_build.load("segminmax_refine"), "smm", err, "segminmax_refine launch")
     _build.bump(segminmax_refine)
     return keep, mm
 

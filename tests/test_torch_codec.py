@@ -307,3 +307,167 @@ def test_argmin_width_on_random_bit_lengths(rng):
     nb = np.minimum(np.maximum(base[:, None] - spread % 5, 0)
                     + (rng.geometric(0.9, (400, 1024)) - 1) * rng.integers(0, 8, (400, 1)), 32)
     _check_width_forms(nb)
+
+
+# ------------------------------------------ the decode kernel's lane algebra
+KNOWN_WIDTHS = (0,) + tref.WIDTHS
+_U32 = (1 << 32) - 1
+
+
+def _lane_unpack(packed: np.ndarray, w: int) -> np.ndarray:
+    """The decode kernel's unpacking at width w on (n, 1024) words: lane l
+    reads only its own words [l*w, l*w + w) and takes value k from bit k*w
+    of them, with the word index and shift known from k and w; a width
+    outside the format, and w = 0, give zeros."""
+    n = packed.shape[0]
+    if w not in tref.WIDTHS:
+        return np.zeros((n, 1024), np.uint32)
+    words = packed.view(np.uint32).astype(np.uint64)[:, :32 * w].reshape(n, 32, w)
+    z = np.zeros((n, 32, 32), np.uint64)
+    for k in range(32):
+        j, s = (k * w) >> 5, (k * w) & 31
+        v = words[:, :, j] >> np.uint64(s)
+        if s + w > 32:
+            assert j + 1 < w          # a straddling value never leaves the lane's words
+            v |= words[:, :, j + 1] << np.uint64(32 - s)
+        z[:, :, k] = v & np.uint64((1 << w) - 1)
+    return (z & np.uint64(_U32)).astype(np.uint32).reshape(n, 1024)
+
+
+def _lane_inject(z, exc_idx, exc_val, exc_count):
+    """The kernel's exception step: slots below the count (taken as is,
+    capped to 64) with a position in [0, 1024) are live; their positions are
+    zeroed, then every live value is added mod 2^32 (the atomics' order
+    cannot matter)."""
+    z = z.astype(np.uint64).copy()
+    for b in range(z.shape[0]):
+        live = min(max(int(exc_count[b]), 0), tref.MAX_EXC)
+        slots = [(int(exc_idx[b, s]), int(exc_val[b, s]) & _U32) for s in range(live)]
+        slots = [(p, v) for p, v in slots if 0 <= p < 1024]
+        for p, _ in slots:
+            z[b, p] = 0
+        for p, v in slots:
+            z[b, p] = (z[b, p] + v) & _U32
+    return z.astype(np.uint32)
+
+
+def _lane_scan(z, anchors):
+    """Un-zigzag, a serial inclusive sum over each lane's 32 values, a
+    5-step warp scan (shift up by 1, 2, 4, 8, 16) of the lane totals, then
+    the anchor: all mod 2^32."""
+    z = z.astype(np.uint64).reshape(-1, 32, 32)
+    d = ((z >> np.uint64(1)) ^ ((np.uint64(0) - (z & np.uint64(1))) & np.uint64(_U32)))
+    run = np.cumsum(d, axis=2) & np.uint64(_U32)
+    total = run[:, :, -1]
+    incl = total.copy()
+    for dist in (1, 2, 4, 8, 16):
+        up = np.zeros_like(incl)
+        up[:, dist:] = incl[:, :-dist]
+        incl = (incl + up) & np.uint64(_U32)
+    base = (anchors.astype(np.int64).astype(np.uint64)[:, None] + incl - total) & np.uint64(_U32)
+    return ((base[:, :, None] + run) & np.uint64(_U32)).astype(np.uint32).reshape(-1, 1024)
+
+
+def _lane_decode(args) -> np.ndarray:
+    packed, widths, anchors, exc_idx, exc_val, exc_count = (np.asarray(a) for a in args)
+    z = np.concatenate([_lane_unpack(packed[b:b + 1], int(widths[b]))
+                        for b in range(packed.shape[0])])
+    return _lane_scan(_lane_inject(z, exc_idx, exc_val, exc_count), anchors).view(np.int32)
+
+
+def _both_references(args) -> tuple[np.ndarray, np.ndarray]:
+    from repro.kernels.fp_delta.ref import decode_blocks_ref as jdec
+
+    port = tref.decode_blocks_ref(*(torch.from_numpy(np.asarray(a)) for a in args))
+    jax_out = np.asarray(jax.jit(jdec)(*[np.asarray(a) for a in args]))
+    return port.view(torch.int32).numpy(), jax_out.view(np.int32)
+
+
+def _stream_args(rng, n=3):
+    s = tfd.encode(_specials(rng, n * 1024), device="cpu")
+    return [t.numpy().copy() for t in (s.packed, s.widths, s.anchors, s.exc_idx, s.exc_val,
+                                       s.exc_count)]
+
+
+@pytest.mark.parametrize("w", KNOWN_WIDTHS + (5, 7, 33, -1, 255))
+def test_lane_unpack_equals_reference(rng, w):
+    """Random words (also past the 32*w valid ones, which must be ignored)
+    at every width and at widths outside the format: the lane-local
+    unpacking equals the reference's group unpacking, and the whole lane
+    decode equals both plain decodes."""
+    import jax.numpy as jnp
+
+    from repro.kernels.fp_delta.ref import unpack_candidate
+
+    packed = rng.integers(0, 2 ** 32, (2, 1024), dtype=np.uint64).astype(np.uint32)
+    got = _lane_unpack(packed, w)
+    if w in tref.WIDTHS:
+        want = np.asarray(unpack_candidate(jnp.asarray(packed, jnp.uint32), w))
+        assert np.array_equal(got, want)
+    else:
+        assert not got.any()
+    args = [packed.view(np.int32), np.full(2, w, np.int32),
+            rng.integers(-2 ** 31, 2 ** 31, 2).astype(np.int32),
+            np.zeros((2, tref.MAX_EXC), np.int32), np.zeros((2, tref.MAX_EXC), np.int32),
+            np.zeros(2, np.int32)]
+    port, ref_ = _both_references(args)
+    assert np.array_equal(_lane_decode(args), port)
+    assert np.array_equal(port, ref_)
+
+
+@pytest.mark.parametrize("zig", ["random", "all_ones", "max_zigzag", "smooth"])
+def test_lane_scan_equals_cumsum(rng, zig):
+    """The serial-sum plus warp-scan prefix, fed width-32 blocks (whose
+    words are the zigzags), equals the plain decodes' cumulative sum mod
+    2^32, wrap-around included."""
+    n = 4
+    z = {"random": lambda: rng.integers(0, 2 ** 32, (n, 1024), dtype=np.uint64),
+         "all_ones": lambda: np.ones((n, 1024), np.uint64),
+         "max_zigzag": lambda: np.full((n, 1024), _U32, np.uint64),
+         "smooth": lambda: rng.integers(0, 64, (n, 1024), dtype=np.uint64)}[zig]()
+    z = z.astype(np.uint32)
+    args = [z.view(np.int32), np.full(n, 32, np.int32),
+            np.array([0, -1, 2 ** 31 - 1, -2 ** 31], np.int32),
+            np.zeros((n, tref.MAX_EXC), np.int32), np.zeros((n, tref.MAX_EXC), np.int32),
+            np.zeros(n, np.int32)]
+    port, ref_ = _both_references(args)
+    assert np.array_equal(_lane_scan(z, args[2]).view(np.int32), port)
+    assert np.array_equal(port, ref_)
+
+
+def _malformed(rng, case):
+    """Exception slots that encode never writes."""
+    args = _stream_args(rng)
+    idx, val, cnt = args[3], args[4], args[5]
+    if case == "duplicates":
+        idx[0, :5] = [17, 17, 17, 900, 900]
+        val[0, :5] = [5, 9, -2, 2 ** 31 - 1, 2 ** 31 - 1]     # the 900 pair wraps
+        cnt[0] = 5
+        idx[1, :64] = 3                                      # all 64 slots on one position
+        val[1, :64] = rng.integers(-2 ** 31, 2 ** 31, 64)
+        cnt[1] = 64
+    elif case == "out_of_range":
+        idx[0, :6] = [-1, 1024, 65535, 0, 1023, -2 ** 31]
+        val[0, :6] = rng.integers(-2 ** 31, 2 ** 31, 6)
+        cnt[0] = 6
+    elif case.startswith("count_"):
+        c = int(case.split("_")[1].replace("m", "-"))
+        idx[:] = rng.integers(0, 1024, idx.shape)
+        idx[:, 10:20] = 500                                  # duplicates among them
+        val[:] = rng.integers(-2 ** 31, 2 ** 31, val.shape)
+        cnt[:] = c
+    elif case == "unknown_widths":
+        args[1][:] = [5, 33, -1]
+    return args
+
+
+@pytest.mark.parametrize("case", ["duplicates", "out_of_range", "count_m1", "count_0",
+                                  "count_64", "count_255", "unknown_widths"])
+def test_lane_exceptions_equal_reference(rng, case):
+    """Duplicate live slots sum, out-of-range positions (-1, 1024, 65535)
+    are dropped, and counts of -1, 0, 64 and 255 take 0, 0, 64 and 64
+    slots: the kernel's zero-then-add step equals both plain decodes."""
+    args = _malformed(rng, case)
+    port, ref_ = _both_references(args)
+    assert np.array_equal(port, ref_)
+    assert np.array_equal(_lane_decode(args), port)

@@ -97,6 +97,85 @@ def test_page_minmax_kernel_matches_plain(card, rng):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _page_cases(rng):
+    """(name, values, bounds) for kernel 3: one 1<<20-value page, 10,000
+    empty pages among real ones, bounds that start and end off 16-byte
+    boundaries (and a values view off one), NaN, ±0 and denormal pages."""
+    tiny = np.finfo(np.float32).smallest_subnormal
+    out = []
+    v = rng.normal(-3, 1e3, 1 << 20).astype(np.float32)
+    out.append(("one_page_1M", v, np.array([0, v.size], np.int64)))
+    sizes = np.zeros(10_400, np.int64)
+    sizes[rng.choice(sizes.size, 400, replace=False)] = rng.integers(1, 6000, 400)
+    v = rng.normal(5, 1e2, int(sizes.sum())).astype(np.float32)
+    v[rng.integers(0, v.size, 300)] = np.array([np.nan, -0.0, 0.0, tiny, -tiny, np.inf],
+                                               np.float32)[rng.integers(0, 6, 300)]
+    out.append(("empty_10000", v, np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)))
+    v = rng.normal(0, 1, 70_001).astype(np.float32)
+    v[[5, 9, 4099, 4100]] = [-0.0, 0.0, 0.0, -0.0]
+    out.append(("misaligned_bounds", v,
+                np.array([3, 9, 4098, 4101, 4101, 30_001, 69_998], np.int64)))
+    return out
+
+
+def test_page_minmax_kernel_large_empty_and_misaligned(card, rng):
+    """Kernel 3 on a 1<<20-value page (one block), 10,000 empty pages and
+    ragged bounds, with the values pointer 0, 4 and 12 bytes off 16."""
+    for name, v, b in _page_cases(rng):
+        vt = torch.from_numpy(v).to(card)
+        bt = torch.from_numpy(b).to(card)
+        for off in (0, 1, 3):          # the values pointer 0, 4 and 12 bytes off 16
+            if off:
+                buf = torch.empty(v.size + off, dtype=torch.float32, device=card)
+                buf[off:] = vt
+                vv = buf[off:]
+            else:
+                vv = vt
+            got = mkernel.page_minmax(vv, bt)
+            want = mref.page_minmax_ref(vv, bt)
+            for g, w in zip(got, want):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32)), (name, off)
+
+
+def test_page_minmax_kernel_back_to_back_and_threads(card, rng):
+    """Calls queued back to back and four threads at once each get their
+    own outputs and agree with the plain version."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cases = [(torch.from_numpy(v).to(card), torch.from_numpy(b).to(card))
+             for _, v, b in _page_cases(rng)]
+    wants = [mref.page_minmax_ref(v, b) for v, b in cases]
+    outs = [mkernel.page_minmax(v, b) for v, b in cases]
+    for got, want in zip(outs, wants):
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for _ in range(3):
+            outs = list(pool.map(lambda c: mkernel.page_minmax(*c), cases + cases[:1]))
+            torch.cuda.synchronize()
+            for got, want in zip(outs, wants + wants[:1]):
+                for g, w in zip(got, want):
+                    assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_page_minmax_kernel_on_two_streams(card, rng):
+    """Calls alternating between two streams agree with the plain version."""
+    cases = [(torch.from_numpy(v).to(card), torch.from_numpy(b).to(card))
+             for _, v, b in _page_cases(rng)]
+    wants = [mref.page_minmax_ref(v, b) for v, b in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for r in range(4):
+        for i, (v, b) in enumerate(cases):
+            with torch.cuda.stream(streams[(r + i) % 2]):
+                outs.append((i, mkernel.page_minmax(v, b)))
+    torch.cuda.synchronize()
+    for i, got in outs:
+        for g, w in zip(got, wants[i]):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
 def test_main_path_on_card_matches_host(card, tmp_path):
     """write_file + bbox-refined reads on the card equal the numpy path."""
     cols = porto_taxi_like(n_traj=3000)
@@ -300,6 +379,109 @@ def test_encode_kernel_block_counts(card, rng, n_blocks):
         assert (w[-1], c[-1]) == (1, 64)
     back = fkernel.decode_blocks(*got)
     assert torch.equal(back.view(torch.int32), xt.view(torch.int32))
+
+
+def _malformed_streams(rng, card):
+    """Decode inputs that encode never writes, as (name, six int32 arrays
+    on the card): repeated live slots (summing, wrapping), positions -1,
+    1024 and 65535, exception counts -1, 0, 64 and 255, widths outside the
+    format."""
+    x = (np.cumsum(rng.normal(0, 1e-4, 6 * 1024)) + 41).astype(np.float32)
+    x[rng.integers(0, x.size, 100)] = rng.normal(0, 1e30, 100).astype(np.float32)
+    base = [t.clone() for t in fkernel.encode_blocks(torch.from_numpy(x.reshape(6, 1024)).to(card))]
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int64).astype(np.int32), device=card)
+
+    out = []
+    a = [t.clone() for t in base]
+    a[3][0, :5] = i32([17, 17, 17, 900, 900])
+    a[4][0, :5] = i32([5, 9, -2, 2 ** 31 - 1, 2 ** 31 - 1])
+    a[5][0] = 5
+    a[3][1, :] = 3                                   # 64 live slots on one position
+    a[4][1, :] = i32(rng.integers(-2 ** 31, 2 ** 31, 64))
+    a[5][1] = 64
+    out.append(("duplicates", a))
+    a = [t.clone() for t in base]
+    a[3][2, :6] = i32([-1, 1024, 65535, 0, 1023, -2 ** 31])
+    a[4][2, :6] = i32(rng.integers(-2 ** 31, 2 ** 31, 6))
+    a[5][2] = 6
+    out.append(("out_of_range", a))
+    for c in (-1, 0, 64, 255):
+        a = [t.clone() for t in base]
+        a[3][:] = i32(rng.integers(0, 1024, (6, 64)))
+        a[3][:, 10:20] = 500
+        a[4][:] = i32(rng.integers(-2 ** 31, 2 ** 31, (6, 64)))
+        a[5][:] = c
+        out.append((f"count_{c}", a))
+    a = [t.clone() for t in base]
+    a[1][:] = i32([5, 33, -1, 7, 255, 32])
+    out.append(("unknown_widths", a))
+    return out
+
+
+def test_miniblock_decode_on_malformed_streams(card, rng):
+    """Streams outside encode's contract: the kernel equals the plain
+    version bit for bit (repeated live slots sum mod 2^32, as the
+    reference's inject_exceptions does)."""
+    for name, args in _malformed_streams(rng, card):
+        got = fkernel.decode_blocks(*args)
+        want = fref.decode_blocks_ref(*args)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+    # the same sums written as one slot each: 5 + 9 - 2 at 17, and
+    # 2 * (2^31 - 1) = -2 mod 2^32 at 900
+    name, args = _malformed_streams(np.random.default_rng(5), card)[0]
+    one = [t.clone() for t in args]
+    one[3][0, :2] = torch.tensor([17, 900], dtype=torch.int32, device=card)
+    one[4][0, :2] = torch.tensor([12, -2], dtype=torch.int32, device=card)
+    one[5][0] = 2
+    assert torch.equal(fkernel.decode_blocks(*args).view(torch.int32)[0],
+                       fkernel.decode_blocks(*one).view(torch.int32)[0])
+
+
+def _decode_inputs(rng, card, n_blocks):
+    """Encoded blocks drawn from the adversarial and codec blocks, encoded
+    by the plain version, on the card."""
+    pool = np.concatenate([_adversarial_blocks(rng), _codec_blocks(rng)])
+    x = torch.from_numpy(pool[rng.integers(0, len(pool), n_blocks)].view(np.float32))
+    return [t.to(card) for t in fref.encode_blocks_ref(x)], x
+
+
+@pytest.mark.parametrize("n_blocks", [1, 7, 5000, 80189])
+def test_miniblock_decode_block_counts(card, rng, n_blocks):
+    """1 and 7 miniblocks (fewer than one block of warps), 5,000 and the
+    codec path's 80,189 (every warp's ring wraps many times)."""
+    args, x = _decode_inputs(rng, card, n_blocks)
+    got = fkernel.decode_blocks(*args)
+    assert torch.equal(got.view(torch.int32), fref.decode_blocks_ref(*args).view(torch.int32))
+    assert torch.equal(got.view(torch.int32).cpu(), x.view(torch.int32))
+
+
+def test_miniblock_decode_back_to_back_and_threads(card, rng):
+    """Two calls queued back to back, then four threads at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    inputs = [_decode_inputs(rng, card, n)[0] for n in (3000, 77, 5000, 1)]
+    inputs += [a for _, a in _malformed_streams(rng, card)[:2]]
+    wants = [fref.decode_blocks_ref(*a).view(torch.int32) for a in inputs]
+    outs = [fkernel.decode_blocks(*a) for a in inputs[:2]]
+    for got, want in zip(outs, wants):
+        assert torch.equal(got.view(torch.int32), want)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for _ in range(3):
+            outs = list(pool.map(lambda a: fkernel.decode_blocks(*a), inputs))
+            torch.cuda.synchronize()
+            for got, want in zip(outs, wants):
+                assert torch.equal(got.view(torch.int32), want)
+
+
+def test_miniblock_decode_rejects_misaligned_operands(card, rng):
+    args, _ = _decode_inputs(rng, card, 4)
+    flat = torch.zeros(4 * 1024 + 1, dtype=torch.int32, device=card)
+    shifted = flat[1:].view(4, 1024)
+    shifted.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fkernel.decode_blocks(shifted, *args[1:])
 
 
 def test_codec_round_trip_on_card(card, rng):

@@ -221,3 +221,154 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         kernel.segminmax_refine(i64, i64, i64, i64, torch.ones(2, dtype=torch.bool),
                                 (0, 0, 0, 0), 64)
     assert kernel.page_minmax.launches == 0 and kernel.segminmax_refine.launches == 0
+
+
+# ---------------------------------------------- kernel 3's blocks, emulated
+_THREADS = 256
+
+
+def _okey(b: np.ndarray) -> np.ndarray:
+    """Kernel 3's int32 order key of uint32 patterns: the magnitude bits
+    flipped when the sign is set, so two's complement order is the total
+    order of non-NaN floats (-0 below +0). The map is its own inverse."""
+    b = np.asarray(b, np.uint32)
+    return (b ^ np.where(b >> 31 != 0, np.uint32(0x7FFFFFFF), np.uint32(0))).view(np.int32)
+
+
+def _block_page_minmax(bits: np.ndarray, bounds: np.ndarray):
+    """Kernel 3's algorithm on uint32 patterns: one block of 256 threads a
+    page, thread t reducing values bounds[p] + t, + 256, ... (denormals as
+    signed zeros, NaN patterns by unsigned max, the rest by int32 order key
+    from the keys of +inf and -inf), then a butterfly of xor shuffles in
+    each warp, then thread 0 folding the eight warp results; a NaN wins,
+    and the keys map back through the same map."""
+    init = _okey(np.array([0x7F800000, 0xFF800000], np.uint32))
+    mn = np.empty(len(bounds) - 1, np.uint32)
+    mx = np.empty(len(bounds) - 1, np.uint32)
+    for p in range(len(bounds) - 1):
+        b = np.asarray(bits[bounds[p]:bounds[p + 1]], np.uint32)
+        b = np.where((b & 0x7F800000) == 0, b & np.uint32(0x80000000), b)
+        nan = (b & 0x7FFFFFFF) > 0x7F800000
+        pad = -len(b) % _THREADS
+        # one row per stride of the block: column t holds thread t's values
+        k = np.concatenate([_okey(b), np.zeros(pad, np.int32)]).reshape(-1, _THREADS)
+        live = np.concatenate([~nan, np.zeros(pad, bool)]).reshape(-1, _THREADS)
+        isnan = np.concatenate([nan, np.zeros(pad, bool)]).reshape(-1, _THREADS)
+        u = np.concatenate([b, np.zeros(pad, np.uint32)]).reshape(-1, _THREADS)
+        kmn = np.where(live, k, init[0]).min(axis=0, initial=init[0]).reshape(8, 32)
+        kmx = np.where(live, k, init[1]).max(axis=0, initial=init[1]).reshape(8, 32)
+        knan = np.where(isnan, u, 0).max(axis=0, initial=0).reshape(8, 32)
+        for d in (16, 8, 4, 2, 1):
+            other = np.arange(32) ^ d
+            kmn, kmx, knan = (np.minimum(kmn, kmn[:, other]), np.maximum(kmx, kmx[:, other]),
+                              np.maximum(knan, knan[:, other]))
+        f_mn, f_mx, f_nan = kmn[0, 0], kmx[0, 0], knan[0, 0]
+        for w in range(1, 8):
+            f_mn, f_mx, f_nan = min(f_mn, kmn[w, 0]), max(f_mx, kmx[w, 0]), max(f_nan, knan[w, 0])
+        mn[p] = f_nan if f_nan else _okey(np.array([f_mn], np.int32).view(np.uint32))[0]
+        mx[p] = f_nan if f_nan else _okey(np.array([f_mx], np.int32).view(np.uint32))[0]
+    return mn.view(np.float32), mx.view(np.float32)
+
+
+def _page_case(rng, case):
+    """(values, bounds) for one case of kernel 3."""
+    def normal(n, loc=0.0):
+        return rng.normal(loc, 1e3, n).astype(np.float32)
+
+    if case == "small_pages":
+        sizes = rng.integers(1, 60, 400)
+    elif case == "pages_of_many_strides":
+        sizes = rng.integers(4000, 20000, 6)
+    elif case == "empty_runs":
+        sizes = np.zeros(1200, np.int64)
+        real = rng.choice(1200, 40, replace=False)
+        sizes[real] = rng.integers(1, 3000, 40)
+    elif case == "page_131072":
+        sizes = np.array([5, 131_072, 0, 4099])
+    elif case in ("signed_zeros", "denormals", "nan_pages"):
+        sizes = np.array([3, 4096, 5000, 1, 0, 9000, 17])
+    else:
+        raise ValueError(case)
+    v = normal(int(sizes.sum()), loc=-7.0)
+    bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    tiny = np.finfo(np.float32).smallest_subnormal
+    if case == "signed_zeros":
+        # -0 and +0 in both orders, a page's two zeros on different threads
+        v[:] = np.abs(v)
+        for p, order in ((1, (-0.0, 0.0)), (2, (0.0, -0.0)), (5, (-0.0, 0.0))):
+            a, b = bounds[p], bounds[p + 1]
+            v[a + 2], v[b - 1] = order
+        v[bounds[3]] = -0.0
+    elif case == "denormals":
+        v[:] = np.abs(v)
+        v[bounds[1]:bounds[2]] = tiny * rng.integers(1, 100, 4096)
+        v[bounds[2] + 3000] = -tiny
+        v[bounds[5]:bounds[6]] = -np.abs(v[bounds[5]:bounds[6]])
+        v[bounds[5] + 8000] = -tiny * 3
+    elif case == "nan_pages":
+        pool = np.array([0x7FC00000, 0x7FC00001, 0xFFC00005, 0x7F800001, 0xFFFFFFFF],
+                        np.uint32).view(np.float32)
+        v[bounds[1] + 10] = pool[0]
+        v[bounds[1] + 4000] = pool[1]                   # the larger pattern, another warp
+        v[bounds[2]:bounds[3]] = pool[rng.integers(0, 5, 5000)]   # all NaN
+        v[bounds[5] + 8999] = pool[4]
+        v[bounds[6]:bounds[7]] = np.inf
+    return v, bounds
+
+
+def _outside(n):
+    """Values outside every page, which no page may see."""
+    return np.full(n, -1e30, np.float32)
+
+
+PAGE_CASES = ["small_pages", "pages_of_many_strides", "empty_runs", "page_131072",
+              "signed_zeros", "denormals", "nan_pages"]
+
+
+@pytest.mark.parametrize("start", [0, 5, 4093])
+@pytest.mark.parametrize("case", PAGE_CASES)
+def test_block_page_minmax_equals_plain(rng, case, start):
+    """Kernel 3's one block a page, emulated, on every case, with the first
+    page starting ``start`` values in (off a 16-byte boundary for 5 and
+    4093): equal to ``page_minmax_ref`` bit for bit, and on every page
+    without NaN to the JAX reference's ``column_page_stats_ex``."""
+    v, bounds = _page_case(rng, case)
+    v = np.concatenate([_outside(start), v, _outside(3)])
+    bounds = bounds + start
+    got = _block_page_minmax(v.view(np.uint32), bounds)
+    want = tref.page_minmax_ref(torch.from_numpy(v), torch.from_numpy(bounds))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.view(np.int32), w.numpy().view(np.int32))
+    jmn, jmx, nnan = jmm.column_page_stats_ex(v, bounds, use_pallas=False)
+    clean = nnan == 0
+    assert np.array_equal(_bits(got[0][clean].astype(np.float64)), _bits(jmn[clean]))
+    assert np.array_equal(_bits(got[1][clean].astype(np.float64)), _bits(jmx[clean]))
+    tmn, tmx, tnan = tmm.column_page_stats_ex(v, bounds, device="cpu")
+    for a, b in zip((jmn, jmx, nnan), (tmn, tmx, tnan)):
+        assert np.array_equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("kind", ["normals", "denormals", "zeros_and_infs", "any_pattern"])
+def test_order_key_is_its_own_inverse_in_total_order(rng, kind):
+    """The key map inverts itself, and on non-NaN patterns the int32 order
+    of keys is the float order with -0 below +0 (what lets the kernel map
+    its reduced keys straight back to floats)."""
+    if kind == "normals":
+        b = rng.normal(0, 1e6, 4000).astype(np.float32).view(np.uint32)
+    elif kind == "denormals":
+        b = rng.integers(1, 0x800000, 4000, dtype=np.uint32) | (
+            rng.integers(0, 2, 4000, dtype=np.uint32) << np.uint32(31))
+    elif kind == "zeros_and_infs":
+        b = np.array([0, 0x80000000, 0x7F800000, 0xFF800000, 0x00000001, 0x80000001,
+                      0x7F7FFFFF, 0xFF7FFFFF], np.uint32)
+    else:
+        b = rng.integers(0, 2 ** 32, 20000, dtype=np.uint32)
+    assert np.array_equal(_okey(_okey(b).view(np.uint32)).view(np.uint32), b)
+    b = b[(b & 0x7FFFFFFF) <= 0x7F800000]
+    f = b.view(np.float32).astype(np.float64)
+    by_key = b[np.argsort(_okey(b), kind="stable")]
+    fk = by_key.view(np.float32).astype(np.float64)
+    assert np.all(np.diff(fk) >= 0)
+    assert sorted(f.tolist()) == fk.tolist()
+    zeros = by_key[fk == 0]
+    assert np.all(np.diff((zeros >> 31 == 0).astype(np.int8)) >= 0)   # every -0 before +0
