@@ -61,7 +61,8 @@ Phases, each fatal on failure (nothing is caught):
    inputs, and of the CUDA-core kernel, the plain version and SDPA on
    float32 ones.
 
-Between phases 3 and 4 run the two paths added after them:
+Between phases 3 and 4 run the four paths added after them, in the order
+3a, 3c, 3d, 3b (3c and 3d read the lake 3a writes):
 
 3a. the dataset path, with every launch count set to 0 just before:
     ``write_dataset`` of the same Porto columns and extras into 16
@@ -82,7 +83,30 @@ Between phases 3 and 4 run the two paths added after them:
     the decoded bits; and the decode on streams encode never writes
     (:func:`decode_malformed`: repeated live exception slots, which sum,
     positions and counts out of range, unknown widths), exact against the
-    plain version.
+    plain version;
+3c. the serve path, over the lake of 3a, with every launch count set to 0
+    just before each server: ``SpatialQueryServer(device="cuda",
+    cache_rgs=32, max_wave=64)`` answers 1, 16 and 64 bbox queries (boxes
+    cycling 1, 5, 10, 25 and 50 % record selectivity, the reference serve
+    benchmark's traffic), each count on a fresh server; the 64-query server
+    then answers the same 64 boxes again, which must decode nothing (no
+    ``device.refine_multi_launch`` span, no kernel launch: the row groups
+    come from the cache on the card). Every query is held exactly against
+    the dataset oracle (coordinates, extras, ``ReadStats``); after
+    ``invalidate()`` the device memory must be back at its level from
+    before the server. The five distinct boxes as solo sequential
+    ``scan(refine=True, parallel=False)`` calls give the unshared baseline.
+    Kernels 1 and 2 must launch in each wave of decodes; every counter is
+    read after every wave and summed into ``launches_serve``. Kernels 1
+    and 2 are then timed once at the serve tier's own shape (a whole row
+    group's first device chunk, ``serve_shape`` on their kernel lines),
+    held against their plain versions there;
+3d. the data feed, every count set to 0 just before: ``Prefetcher(
+    TrajectoryBatcher([lake], GeoTokenizer(PORTO_BBOX, order=6),
+    seq_len=128, global_batch=16, bbox=<the 10 % box>, loop=False))`` (the
+    reference pipeline benchmark's settings) run to its end on ``"cuda"``,
+    then the same on ``"host"``: every batch equal bit for bit, kernels 1
+    and 2 launched on the card and nothing on the host.
 
 Every line is one JSON object. The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
@@ -124,6 +148,15 @@ LM_BATCH, LM_SEQ, LM_FULL_BATCH = 2, 4096, 256   # train_4k: seq 4096, global ba
 SERVE_MAX_LEN = 256
 SERVE_CHECK_REQUESTS = 8                        # functional check, max_batch 4, 16 new tokens
 SERVE_LOAD = (256, 32, 128)                      # requests, max_batch, max_new_tokens
+# Serve path: the reference serve benchmark's traffic (benchmarks/bench_serve.py):
+# boxes cycle these record selectivities; the whole lake fits in the cache.
+QUERY_FRACS = (0.01, 0.05, 0.10, 0.25, 0.50)
+SERVE_COUNTS = (1, 16, 64)                      # the reference's 256 cut to one full wave
+SERVE_MAX_WAVE, SERVE_CACHE_RGS = 64, 32
+SERVE_SPANS = ("device.h2d", "device.refine_multi_launch", "device.refine_cached",
+               "device.gather")
+# Data feed: the reference pipeline benchmark's settings (benchmarks/bench_pipeline.py)
+FEED_SEQ, FEED_BATCH = 128, 16
 DEVICE = "cuda"
 
 
@@ -213,19 +246,28 @@ class Oracle:
             k &= (v >= lo) & (v <= hi)
         return k
 
-    def check(self, res, keep, what: str) -> int:
-        geo, extras, stats = res
+    def expect(self, keep) -> dict:
+        """The records ``keep`` selects: their coordinate bits and extras."""
         sel = self.order[keep]
-        n = int(keep.sum())
+        iv = ragged(self.starts[sel], self.npts[sel])
+        return {"n": int(keep.sum()), "x": ibits(self.x[iv]), "y": ibits(self.y[iv]),
+                "extra": {k: ibits(np.ascontiguousarray(v[sel])) for k, v in self.extra.items()}}
+
+    def check(self, res, keep, what: str) -> int:
+        """Hold a read's result exactly to the records ``keep`` selects."""
+        return self.check_expected(res, self.expect(keep), what)
+
+    def check_expected(self, res, want: dict, what: str) -> int:
+        """:meth:`check` against an :meth:`expect` computed once."""
+        geo, extras, stats = res
+        n = want["n"]
         require(stats.records_returned == n,
                 f"{what}: {stats.records_returned} records returned, oracle {n}")
         geo = geo.coords_to_host()
-        iv = ragged(self.starts[sel], self.npts[sel])
-        require(np.array_equal(ibits(geo.x), ibits(self.x[iv])), f"{what}: x bits differ")
-        require(np.array_equal(ibits(geo.y), ibits(self.y[iv])), f"{what}: y bits differ")
-        for k, v in self.extra.items():
-            require(np.array_equal(ibits(np.ascontiguousarray(extras[k])),
-                                   ibits(np.ascontiguousarray(v[sel]))),
+        require(np.array_equal(ibits(geo.x), want["x"]), f"{what}: x bits differ")
+        require(np.array_equal(ibits(geo.y), want["y"]), f"{what}: y bits differ")
+        for k, v in want["extra"].items():
+            require(np.array_equal(ibits(np.ascontiguousarray(extras[k])), v),
                     f"{what}: extra {k!r} differs")
         return n
 
@@ -810,7 +852,200 @@ def dataset_path(data, root: Path, main: dict, counters) -> dict:
     return {"write_s": write_s, "shards": manifest.n_shards,
             "shard_records": [s.n_records for s in manifest.shards],
             "dataset_bytes": sum(s.file_bytes for s in manifest.shards),
-            "scans": scans, "launches": launches}
+            "scans": scans, "launches": launches, "_oracle": oracle}
+
+
+# ---------------------------------------------------------------- serve path
+def serve_path(oracle: DatasetOracle, root: Path, counters) -> dict:
+    """Phase 3c: the multi-query bbox server over the Porto lake, with the
+    reference serve benchmark's traffic (boxes cycling ``QUERY_FRACS``)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.dataset import SpatialDatasetScanner
+    from repro_torch.serve import SpatialQueryServer
+
+    boxes = [selectivity_bbox(oracle, f) for f in QUERY_FRACS]
+    wants = [oracle.expect(oracle.keep(b)) for b in boxes]
+    stats_want = [oracle.stats(b) for b in boxes]
+    scanner = SpatialDatasetScanner(root, max_workers=DATASET_WORKERS)
+    stat_keys = tuple(stats_want[0])
+
+    def check(qs, what):
+        for i, q in qs:
+            oracle.check_expected((q.geo, q.extras, q.stats), wants[i], f"{what} q{q.qid}")
+            got = {k: getattr(q.stats, k) for k in stat_keys}
+            require(got == stats_want[i], f"{what} q{q.qid}: ReadStats {got}, oracle {stats_want[i]}")
+
+    def wave(srv, n, what):
+        tracer = obs.enable()
+        t0 = time.perf_counter()
+        qs = [(i % len(boxes), srv.submit(boxes[i % len(boxes)])) for i in range(n)]
+        srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        obs.disable()
+        check(qs, what)
+        tot = {r["name"]: r["total_ms"] / 1e3 for r in tracer.summary()}
+        split = {k: tot.get(k, 0.0) for k in SERVE_SPANS}
+        counts = {k: len(tracer.spans(k)) for k in ("device.refine_multi_launch",
+                                                    "device.refine_cached")}
+        m = srv.metrics()
+        # two host parts of host_plan_s: whole-row-group reads with their
+        # stream building (misses only), and each query's result assembly
+        host = {"rg_read_s": tot.get("rg.read_full", 0.0), "finalize_s": tot.get("serve.query", 0.0)}
+        return {"served_s": wall, "host_plan_s": wall - sum(split.values()), **host, **split,
+                **{k: m[k] for k in ("queries", "waves", "rg_touches", "rg_decodes",
+                                     "shared_decode_ratio", "cache_hits", "cache_misses",
+                                     "cache_evictions", "cache_entries")},
+                "latency_p50_s": m.get("latency_p50"), "latency_p99_s": m.get("latency_p99"),
+                "span_counts": counts,
+                "records_returned": sum(q.stats.records_returned for _, q in qs)}
+
+    out = {"query_fracs": list(QUERY_FRACS), "boxes": boxes, "max_wave": SERVE_MAX_WAVE,
+           "cache_rgs": SERVE_CACHE_RGS, "by_query_count": {}}
+    total = dict.fromkeys((c.kname for c in counters), 0)
+    for n in SERVE_COUNTS:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        for c in counters:
+            c.launches = 0
+        srv = SpatialQueryServer(scanner, device=DEVICE, cache_rgs=SERVE_CACHE_RGS,
+                                 max_wave=SERVE_MAX_WAVE)
+        require(srv.device == DEVICE, f"the server runs on {srv.device!r}")
+        row = wave(srv, n, f"serve {n}")
+        launches = {c.kname: c.launches for c in counters}
+        for name in FILE_KERNELS[:2]:
+            require(launches[name] > 0, f"kernel {name} was not launched by the {n}-query wave")
+        for name in total:
+            total[name] += launches[name]
+        row["launches"] = launches
+        torch.cuda.synchronize()
+        row["cache_device_bytes"] = torch.cuda.memory_allocated() - mem0
+        if n == SERVE_COUNTS[-1]:
+            # the same boxes again: every row group is a cache hit
+            for c in counters:
+                c.launches = 0
+            hit = wave(srv, n, f"serve {n} (second wave)")
+            require(hit["rg_decodes"] == row["rg_decodes"],
+                    f"the second wave decoded {hit['rg_decodes'] - row['rg_decodes']} row groups")
+            require(hit["span_counts"]["device.refine_multi_launch"] == 0
+                    and hit["span_counts"]["device.refine_cached"] > 0,
+                    f"the second wave's device spans: {hit['span_counts']}")
+            launches = {c.kname: c.launches for c in counters}
+            require(not any(launches.values()), f"the second wave launched {launches}")
+            for name in total:
+                total[name] += launches[name]
+            row["second_wave"] = hit
+        srv.invalidate()
+        torch.cuda.synchronize()
+        freed = torch.cuda.memory_allocated()
+        require(freed == mem0, f"after invalidate() {freed - mem0} device bytes remain")
+        srv.close()
+        out["by_query_count"][str(n)] = row
+        emit({"serve_wave": {"queries": n, **row}})
+        del srv
+    # the unshared baseline: each distinct box as a solo sequential scan
+    t0 = time.perf_counter()
+    for i, b in enumerate(boxes):
+        res = scanner.scan(b, refine=True, device=DEVICE, parallel=False)
+        torch.cuda.synchronize()
+        oracle.check_expected(res, wants[i], f"sequential {QUERY_FRACS[i]}")
+        del res
+    out["sequential_s"] = time.perf_counter() - t0
+    out["launches"] = total
+    out["kernel_times"] = serve_shape_kernels(scanner, boxes[2])
+    return out
+
+
+def serve_shape_kernels(scanner, bbox) -> dict:
+    """Kernels 1 and 2 timed at the shape the serve tier gives them: the
+    first device chunk of a whole row group (shard 0, row group 0) read by
+    ``read_row_group``, where the file path's launches cover a bbox's pages
+    only. Each is held once against its plain version at this shape; these
+    launches are not counted as the serve tier's."""
+    import torch
+
+    from repro_torch.kernels.fp_delta import kernel as fk, ref as fr, stream_from_numpy
+    from repro_torch.kernels.minmax import bbox_query_keys, keys64
+    from repro_torch.kernels.minmax import kernel as mk, ref as mr
+
+    with scanner.open_shard(0) as r:
+        data = r.read_row_group(0, device=DEVICE)
+    ch = next((c for c in data.chunks if c.kind == "dev"), None)
+    require(ch is not None, "shard 0 row group 0 has no device chunk")
+    ds = stream_from_numpy(ch.stream, ch.aux, device=DEVICE)
+    out = {}
+
+    args = (ds.words32, ds.tok_off, ds.nbits, ds.anchor, ds.width)
+    got = fk.decode_stream(*args)
+    bad, err = mismatches(got, fr.decode_stream_ref(*args))
+    n = ds.n_values
+    last_bit = int((ch.stream.tok_off.reshape(-1)[:n].astype(np.int64)
+                    + ch.stream.nbits.reshape(-1)[:n]).max())
+    words_used = -(-last_bit // 32) * 4
+    bytes_moved = words_used + 12 * n + n * ds.width // 8
+    out["fp_delta.decode_stream"] = dict(
+        mismatches=bad, max_abs_err=err, ms=cuda_ms(lambda: fk.decode_stream(*args)),
+        device_ms=device_ms(lambda: fk.decode_stream(*args)), bytes=bytes_moved,
+        bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+        shape={"values": n, "positions": int(ds.tok_off.numel()),
+               "packed_word_bytes": words_used, "width": ds.width})
+
+    q = keys64(bbox_query_keys(bbox, np.float32 if ds.width == 32 else np.float64))
+    rargs = (got, ds.x_start, ds.y_start, ds.counts, ds.valid, q, ds.width)
+    kk, km = mk.segminmax_refine(*rargs)
+    pk, pm = mr.segminmax_refine_ref(*rargs)
+    torch.cuda.synchronize()
+    m1, e1 = mismatches(kk.to(torch.int32), pk.to(torch.int32))
+    m2, e2 = mismatches(km, pm)
+    n_rec = int(ds.counts.shape[0])
+    vals = 2 * int(ch.aux.counts.sum())
+    bytes_moved = vals * ds.width // 8 + n_rec * (8 * 3 + 1) + n_rec * (1 + 32)
+    out["minmax.segminmax_refine"] = dict(
+        mismatches=m1 + m2, max_abs_err=max(e1, e2),
+        ms=cuda_ms(lambda: mk.segminmax_refine(*rargs)),
+        device_ms=device_ms(lambda: mk.segminmax_refine(*rargs)), bytes=bytes_moved,
+        bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+        shape={"records": n_rec, "values": vals, "width": ds.width})
+    for name, row in out.items():
+        require(row["mismatches"] == 0,
+                f"{name}: kernel disagrees with its plain version at the serve shape")
+    return out
+
+
+# ---------------------------------------------------------------- data feed
+def feed_path(root: Path, bbox, counters) -> dict:
+    """Phase 3d: the trajectory data feed (the reference pipeline bench's
+    settings) on the card and on the host; batches equal bit for bit."""
+    from repro_torch.data.pipeline import Prefetcher, TrajectoryBatcher
+    from repro_torch.data.synthetic import PORTO_BBOX
+    from repro_torch.data.tokenizer import GeoTokenizer
+
+    out, batches = {}, {}
+    for device in (DEVICE, "host"):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        it = Prefetcher(TrajectoryBatcher(
+            [root], GeoTokenizer(PORTO_BBOX, order=6), seq_len=FEED_SEQ,
+            global_batch=FEED_BATCH, bbox=bbox, loop=False, seed=0, device=device))
+        batches[device] = [b["tokens"] for b in it]
+        wall = time.perf_counter() - t0
+        n_tok = sum(b.size for b in batches[device])
+        out[device] = {"batches": len(batches[device]), "tokens": n_tok, "wall_s": wall,
+                       "tokens_per_s": n_tok / wall, "stalls": it.stalls,
+                       "launches": {c.kname: c.launches for c in counters}}
+    got, want = batches[DEVICE], batches["host"]
+    require(len(got) == len(want) > 0, f"{len(got)} batches on the card, {len(want)} on the host")
+    require(all(np.array_equal(g, w) for g, w in zip(got, want)),
+            "the card's batches differ from the host's")
+    launches = out[DEVICE]["launches"]
+    for name in FILE_KERNELS[:2]:
+        require(launches[name] > 0, f"kernel {name} was not launched by the data feed")
+    require(not any(out["host"]["launches"].values()), "the host feed launched a kernel")
+    out["launches"] = launches
+    return out
 
 
 # ---------------------------------------------------------------- codec path
@@ -1429,7 +1664,9 @@ def main() -> int:
         c.kname = name
     emit({"kernel_names": names})
     reduced = {"lm": {"config": LM_CONFIG, "shape": "train_4k", "seq_len": LM_SEQ,
-                      "global_batch": [LM_FULL_BATCH, LM_BATCH]}}
+                      "global_batch": [LM_FULL_BATCH, LM_BATCH]},
+               "serve": {"query_counts": [[1, 16, 256], list(SERVE_COUNTS)],
+                         "sequential_queries": [SERVE_COUNTS[-1], len(QUERY_FRACS)]}}
     if args.n_traj != FULL_N_TRAJ:
         reduced["n_traj"] = [FULL_N_TRAJ, args.n_traj]
     emit({"reduced": reduced})
@@ -1444,9 +1681,19 @@ def main() -> int:
         emit({"main_path": {k: v for k, v in main.items() if not k.startswith("_")}})
         table = check_kernels(path, main)
         t0 = time.perf_counter()
-        ds = dataset_path(data, Path(tmp) / "porto_lake", main, counters)
+        lake = Path(tmp) / "porto_lake"
+        ds = dataset_path(data, lake, main, counters)
         ds["wall_s"] = time.perf_counter() - t0
-        emit({"dataset_path": ds})
+        emit({"dataset_path": {k: v for k, v in ds.items() if not k.startswith("_")}})
+        t0 = time.perf_counter()
+        serve = serve_path(ds["_oracle"], lake, counters)
+        serve["wall_s"] = time.perf_counter() - t0
+        emit({"serve_path": {k: v for k, v in serve.items() if k != "by_query_count"}})
+        t0 = time.perf_counter()
+        feed = feed_path(lake, main["_boxes"]["refine_10pct"], counters)
+        feed["wall_s"] = time.perf_counter() - t0
+        emit({"feed_path": feed})
+        del ds
     t0 = time.perf_counter()
     codec = codec_path(data[0], counters)
     codec["wall_s"] = time.perf_counter() - t0
@@ -1464,11 +1711,18 @@ def main() -> int:
                 **{n: codec_launches[n] for n in CODEC_KERNELS},
                 **{n: lm["launches"][n] for n in LM_KERNELS},
                 F32_FLASH: lm["float32_route"]["launches"][F32_FLASH]}
+    launches_serve = {n: serve["launches"][n] for n in launches}
+    serve_shape = serve["kernel_times"]
+    launches_feed = {n: feed["launches"][n] for n in launches}
     for row in table:
         emit({"kernel": row["name"], "mismatches": row["mismatches"],
               "kernel_ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
               "library_ms": row["library_ms"], "launches": launches[row["name"]],
-              "shape": row["shape"], "bytes": row["bytes"]})
+              "launches_serve": launches_serve[row["name"]],
+              "launches_feed": launches_feed[row["name"]],
+              "shape": row["shape"], "bytes": row["bytes"],
+              **({"serve_shape": serve_shape[row["name"]]}
+                 if row["name"] in serve_shape else {})})
     for row in table:
         require(row["mismatches"] == 0, f"{row['name']}: kernel disagrees with its plain version")
     flash = next(r for r in table if r["name"] == LM_KERNELS[0])
@@ -1478,8 +1732,12 @@ def main() -> int:
     emit({"total_s": time.perf_counter() - t_start})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: (launches[r["name"]] if k == "launches" else r[k])
-                       for k in keys} for r in table]})
+    emit({"kernels": [{**{k: (launches[r["name"]] if k == "launches" else r[k]) for k in keys},
+                       "launches_serve": launches_serve[r["name"]],
+                       "launches_feed": launches_feed[r["name"]],
+                       **({"serve_shape": {k: serve_shape[r["name"]][k]
+                                           for k in ("ms", "device_ms", "bound_ms")}}
+                          if r["name"] in serve_shape else {})} for r in table]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -321,13 +321,34 @@ class _RowGroupLevels:
 
 
 @dataclass
+class RowGroupChunk:
+    """One launch chunk of a fully read row group (``device="cuda"``/``"cpu"``).
+
+    ``kind == "dev"`` carries an *unlaunched* page stream plus its refine aux
+    (record segmentation): the query server launches it so it can answer a
+    whole wave's bboxes from one decode. ``kind == "host"`` carries decoded
+    x/y values of a page pair too large for any launch (decoded on the host,
+    same bits). ``rec_lo``/``rec_hi`` are the rg-local record range the chunk
+    covers.
+    """
+
+    kind: str
+    rec_lo: int
+    rec_hi: int
+    stream: object = None
+    aux: object = None
+    x: np.ndarray | None = None
+    y: np.ndarray | None = None
+
+
+@dataclass
 class RowGroupData:
-    """Every page of one row group, decoded once on the host (see
-    ``read_row_group``).
+    """Every page of one row group, read once (see ``read_row_group``).
 
     ``extras`` holds the full extra-column arrays (length ``n_records``);
     ``nbytes`` is the stored bytes fetched to build this (levels + extras +
-    x/y pages) — the cache-attribution unit.
+    x/y pages) — the cache-attribution unit. Exactly one of ``x``/``y``
+    (``device="host"``) or ``chunks`` (``"cuda"``/``"cpu"``) is populated.
     """
 
     rg_i: int
@@ -336,8 +357,9 @@ class RowGroupData:
     levels: _RowGroupLevels
     extras: dict
     nbytes: int
-    x: np.ndarray
-    y: np.ndarray
+    x: np.ndarray | None = None
+    y: np.ndarray | None = None
+    chunks: list[RowGroupChunk] | None = None
 
 
 class SpatialParquetReader:
@@ -1040,16 +1062,26 @@ class SpatialParquetReader:
         return geo, extras, stats
 
     # ---------------------------------------------- whole-row-group decode
-    def read_row_group(self, rg_i: int, *, columns=None) -> "RowGroupData":
-        """Fetch + decode *every* page of one row group on the host,
-        independent of any query bbox — the unit of a decoded-row-group
-        cache.
+    def read_row_group(self, rg_i: int, *, columns=None,
+                       device: str = "cuda") -> "RowGroupData":
+        """Fetch *every* page of one row group, independent of any query
+        bbox — the unit of the query server's decoded-row-group cache
+        (:mod:`repro_torch.serve.query_scheduler`).
 
         Pages are record-aligned, so a record's values (and therefore its
         exact [min, max]) computed from the full row group are bit-identical
         to the same record decoded through a bbox-pruned page run — the
         property that lets one decode serve queries whose page sets differ.
+        ``device="host"`` decodes into ``x``/``y`` numpy arrays;
+        ``device="cuda"`` (the default) or ``"cpu"`` returns *unlaunched*
+        per-chunk page streams (the caller owns the launch so it can answer
+        many bboxes from one decode).
         """
+        if device not in ("cuda", "cpu", "host"):
+            raise ValueError(
+                f"device must be 'cuda', 'cpu' or 'host', got {device!r}")
+        if device != "host":
+            torch_device(device)  # "cuda" without a card raises here
         idx = self.index
         rg = self.footer["row_groups"][rg_i]
         base = int(np.searchsorted(idx.row_group, rg_i, side="left"))
@@ -1059,7 +1091,7 @@ class SpatialParquetReader:
         extra_pages = {k: rg["extra"][k] for k in want_extra}
         runs = [(0, n_pages)]
         stats = ReadStats()
-        with obs.span("rg.read_full", cat="io", rg=rg_i, device="host"):
+        with obs.span("rg.read_full", cat="io", rg=rg_i, device=device):
             src = _CoalescedRanges(
                 self._source,
                 self._rg_ranges(rg, runs, base, True, extra_pages),
@@ -1077,6 +1109,7 @@ class SpatialParquetReader:
                 j0, j1 = base, base + n_pages - 1
                 stats.bytes_read += int(idx.x_nbytes[j0 : j1 + 1].sum()
                                         + idx.y_nbytes[j0 : j1 + 1].sum())
+            rec0 = int(idx.rec_start[base]) if n_pages else 0
 
             def coord_blobs(p):
                 j = base + p
@@ -1090,21 +1123,58 @@ class SpatialParquetReader:
                     meta_y.crc, stats, f"y page {p} of row group {rg_i}")
                 return meta_x, blob_x, meta_y, blob_y
 
-            total_vals = int(idx.count[base : base + n_pages].sum())
-            x_all = np.empty(total_vals, self.coord_dtype)
-            y_all = np.empty(total_vals, self.coord_dtype)
-            w = 0
-            with obs.span("rg.decode", cat="decode", rg=rg_i, device="host"):
+            if device == "host":
+                total_vals = int(idx.count[base : base + n_pages].sum())
+                x_all = np.empty(total_vals, self.coord_dtype)
+                y_all = np.empty(total_vals, self.coord_dtype)
+                w = 0
+                with obs.span("rg.decode", cat="decode", rg=rg_i,
+                              device="host"):
+                    for p in range(n_pages):
+                        meta_x, blob_x, meta_y, blob_y = coord_blobs(p)
+                        cnt = int(idx.count[base + p])
+                        decode_page(blob_x, meta_x, self.coord_dtype,
+                                    self.codec, out=x_all[w : w + cnt])
+                        decode_page(blob_y, meta_y, self.coord_dtype,
+                                    self.codec, out=y_all[w : w + cnt])
+                        w += cnt
+                return RowGroupData(rg_i, n_rec, rec_vcounts, lv, extra_all,
+                                    stats.bytes_read, x=x_all, y=y_all)
+
+            from repro_torch.kernels.fp_delta import (
+                build_page_stream,
+                build_refine_aux,
+                chunk_plan_pairs,
+            )
+
+            plans: list = []
+            pairs: list[tuple[int, int]] = []
+            with obs.span("rg.plan", cat="plan", rg=rg_i, pages=n_pages):
                 for p in range(n_pages):
                     meta_x, blob_x, meta_y, blob_y = coord_blobs(p)
-                    cnt = int(idx.count[base + p])
-                    decode_page(blob_x, meta_x, self.coord_dtype,
-                                self.codec, out=x_all[w : w + cnt])
-                    decode_page(blob_y, meta_y, self.coord_dtype,
-                                self.codec, out=y_all[w : w + cnt])
-                    w += cnt
+                    plans.append(page_stream_plan(
+                        blob_x, meta_x, self.coord_dtype, self.codec))
+                    plans.append(page_stream_plan(
+                        blob_y, meta_y, self.coord_dtype, self.codec))
+                    j = base + p
+                    r0 = int(idx.rec_start[j]) - rec0
+                    pairs.append((r0, r0 + int(idx.rec_count[j])))
+            chunks: list[RowGroupChunk] = []
+            for kind, cplans, cpairs, (rl, rh) in chunk_plan_pairs(plans, pairs):
+                if kind == "host":
+                    chunks.append(RowGroupChunk(
+                        "host", rl, rh,
+                        x=fp_delta_execute(cplans[0]),
+                        y=fp_delta_execute(cplans[1])))
+                    continue
+                stream = build_page_stream(cplans)
+                aux = build_refine_aux(
+                    stream, [(a - rl, b - rl) for a, b in cpairs],
+                    rec_vcounts[rl:rh])
+                chunks.append(RowGroupChunk("dev", rl, rh,
+                                            stream=stream, aux=aux))
             return RowGroupData(rg_i, n_rec, rec_vcounts, lv, extra_all,
-                                stats.bytes_read, x=x_all, y=y_all)
+                                stats.bytes_read, chunks=chunks)
 
     def read(self, bbox=None, refine: bool = False,
              device: str = "cuda") -> tuple[list[Geometry], ReadStats]:

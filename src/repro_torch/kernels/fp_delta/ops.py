@@ -37,7 +37,13 @@ from repro_torch import obs
 from repro_torch._device import torch_device
 from repro_torch.core.columnar import TorchCoords
 from repro_torch.core.fp_delta import HEADER_BITS, FPDeltaPlan, fp_delta_execute
-from repro_torch.kernels.minmax import bbox_query_keys, keys64, segminmax_refine
+from repro_torch.kernels.minmax import (
+    bbox_query_keys,
+    inf_keys64,
+    keep_from_minmax_ref,
+    keys64,
+    segminmax_refine,
+)
 
 from . import kernel, ref
 from .ref import MAX_EXC, MINIBLOCK, STREAM_BLOCK
@@ -535,6 +541,73 @@ def decode_refine_stream(stream: PageStream, aux: RefineAux, bbox, *,
                                    ds.valid, keys64(qkeys), stream.width)
         keep = keep.cpu().numpy()
     return RefineResult(bits, keep)
+
+
+# ------------------------------------------------- multi-query refinement
+# The query server's form of the fused chain (repro_torch.serve.
+# query_scheduler): one decode and one per-record min/max launch answer Q
+# bboxes at once. Kernel 2 already writes every record's (x, y) min/max key
+# bits, so the query axis is a compare over those keys; the key stack stays
+# on the device, where a decoded-row-group cache answers later waves with
+# the compare alone (refine_minmax_multi).
+
+
+@dataclass
+class MultiRefineResult:
+    """Fused multi-query launch output.
+
+    ``bits`` (the decoded stream), ``mm`` (the (R, 4) per-record min/max key
+    bits) and ``valid`` (the (R,) record-validity operand) stay on the
+    device and can be cached; ``keep`` is the (Q, R) host survivor matrix.
+    """
+
+    bits: torch.Tensor
+    mm: torch.Tensor
+    valid: torch.Tensor
+    keep: np.ndarray
+
+
+def decode_refine_stream_multi(stream: PageStream, aux: RefineAux, qkeys,
+                               qvalid, *, device="cuda") -> MultiRefineResult:
+    """Fused decode→refine answering Q stacked bbox queries.
+
+    ``qkeys``/``qvalid`` come from
+    :func:`repro_torch.kernels.minmax.stack_bbox_query_keys`. Each query's
+    survivor row is bit-identical to a solo :func:`decode_refine_stream`
+    over the same stream; invalid (NaN-bound) queries get all-False rows.
+    Kernel 2 runs with any one query's keys (its own mask is not used here):
+    the per-record keys it writes do not depend on them.
+    """
+    qvalid = np.asarray(qvalid, bool)
+    ds = stream_from_numpy(stream, aux, device=device)
+    first = np.flatnonzero(qvalid)
+    if len(first):
+        k = keys64(qkeys[first[0]])
+    else:
+        neg, pos = inf_keys64(stream.width)
+        k = (neg, pos, neg, pos)
+    with obs.span("device.refine_multi_launch", cat="device",
+                  values=stream.n_values, records=aux.n_records,
+                  queries=len(qkeys), width=stream.width):
+        bits = decode_stream_bits(ds)
+        _, mm = segminmax_refine(bits, ds.x_start, ds.y_start, ds.counts,
+                                 ds.valid, k, stream.width)
+        keep = keep_from_minmax_ref(mm, ds.valid, qkeys, qvalid,
+                                    stream.width).cpu().numpy()
+    return MultiRefineResult(bits, mm, ds.valid, keep)
+
+
+def refine_minmax_multi(mm, valid, qkeys, qvalid, *, width: int) -> np.ndarray:
+    """Re-test a cached per-record min/max key stack against Q new bboxes.
+
+    The cache-hit half of the query server: no decode and no scan, only the
+    compare of the fused miss path, so hit and miss survivor rows are
+    bit-identical. Returns (Q, R) bool.
+    """
+    with obs.span("device.refine_cached", cat="device",
+                  records=int(mm.shape[0]), queries=len(qkeys), width=width):
+        return keep_from_minmax_ref(mm, valid, qkeys, qvalid,
+                                    width).cpu().numpy()
 
 
 def ragged_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:

@@ -5,6 +5,7 @@ from .ref import (
     float_order_keys,
     inf_keys,
     inf_keys64,
+    keep_from_minmax_ref,
     keys64,
     page_minmax_ref,
     segminmax_refine_ref,
@@ -25,4 +26,5 @@ __all__ = [
     "inf_keys",
     "inf_keys64",
     "keys64",
+    "keep_from_minmax_ref",
 ]

@@ -9,6 +9,11 @@ Two reductions live here, each the plain version of a CUDA kernel in
   x and y bit patterns in order-key space, and the NaN-fenced bbox survivor
   test of the fused read path.
 
+:func:`keep_from_minmax_ref` is no kernel's plain version: it compares the
+per-record keys :func:`segminmax_refine_ref` (or its kernel) writes with a
+stack of query boxes, as the query server needs, in torch elementwise work
+on the keys' own device.
+
 Order keys
 ----------
 
@@ -103,6 +108,31 @@ def segminmax_refine_ref(bits, x_start, y_start, counts, valid, qkeys, width):
 def _signed(ukey: int) -> int:
     """Unsigned 64-bit key -> its signed compare form."""
     return ukey - (1 << 63)
+
+
+def keep_from_minmax_ref(mm, valid, qkeys, qvalid, width: int) -> torch.Tensor:
+    """(R, 4) per-record min/max keys × Q query boxes → (Q, R) survivor mask.
+
+    ``mm`` is :func:`segminmax_refine_ref`'s second output (unsigned key bit
+    patterns of x_min, x_max, y_min, y_max as int64); ``valid``: (R,) bool
+    on ``mm``'s device; ``qkeys``: (Q, 4, 2) uint32 limbs from
+    :func:`stack_bbox_query_keys`, ``qvalid`` its (Q,) bool. Row q is the
+    survivor test of :func:`segminmax_refine_ref` with query q's keys,
+    verbatim (signed keys, so negative coordinates order right; the NaN
+    fence; ``valid`` drops records with no values, which hold the
+    identities); a row with ``qvalid[q]`` False keeps nothing.
+    """
+    dev = mm.device
+    q = torch.tensor([[_signed(k) for k in keys64(row)] for row in qkeys],
+                     dtype=torch.int64, device=dev).reshape(-1, 4, 1)
+    smm = mm ^ _I64_MIN
+    xmn, xmx, ymn, ymx = (smm[:, i][None] for i in range(4))
+    neg, pos = (_signed(k) for k in inf_keys64(width))
+    qv = torch.as_tensor(np.asarray(qvalid, bool), device=dev)[:, None]
+    return (qv & valid[None]
+            & (xmn <= q[:, 1]) & (xmx >= q[:, 0])
+            & (ymn <= q[:, 3]) & (ymx >= q[:, 2])
+            & (xmx <= pos) & (xmn >= neg) & (ymx <= pos) & (ymn >= neg))
 
 
 def page_minmax_ref(values: torch.Tensor, bounds: torch.Tensor):

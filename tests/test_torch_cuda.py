@@ -519,6 +519,83 @@ def test_dataset_scan_on_card_matches_host(card, tmp_path):
     assert all(c1 > c0 for c0, c1 in zip(counts0, counts1))
 
 
+def _serve_lake(root):
+    from repro_torch.dataset import write_dataset
+
+    cols = porto_taxi_like(n_traj=3000, seed=11)
+    write_dataset(root, columns=cols, extra={"tid": np.arange(cols.n_records, dtype=np.int64)},
+                  n_shards=4, page_values=4096, device="cpu")
+    return root
+
+
+def test_query_server_on_card_matches_host(card, tmp_path):
+    """Two waves of the same boxes (plus no box, a NaN box and a filter) on
+    the card equal the numpy server; the first goes through kernels 1-2,
+    the second is served from the card-resident cache alone, and
+    ``invalidate`` gives the cache's device memory back."""
+    from repro_torch.core.filters import Range
+    from repro_torch.dataset import SpatialDatasetScanner
+    from repro_torch.serve import SpatialQueryServer
+
+    sc = SpatialDatasetScanner(_serve_lake(tmp_path / "lake"))
+    subs = [((-8.7, 41.1, -8.6, 41.2), None), ((-8.65, 41.12, -8.55, 41.2), None),
+            (None, None), ((np.nan, 41.1, -8.6, 41.2), None),
+            ((-8.7, 41.1, -8.6, 41.2), Range("tid", 100, 2000))]
+    with SpatialQueryServer(sc, device="host", max_wave=64) as host:
+        want = [host.submit(b, filter=f) for b, f in subs]
+        host.run()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    with SpatialQueryServer(sc, max_wave=64) as srv:
+        assert srv.device == "cuda"
+        for wave in range(2):
+            counts0 = (fkernel.decode_stream.launches, mkernel.segminmax_refine.launches)
+            decodes0 = srv.rg_decodes
+            got = [srv.submit(b, filter=f) for b, f in subs]
+            srv.run()
+            counts1 = (fkernel.decode_stream.launches, mkernel.segminmax_refine.launches)
+            if wave == 0:
+                assert all(c1 > c0 for c0, c1 in zip(counts0, counts1))
+            else:
+                assert counts1 == counts0 and srv.rg_decodes == decodes0
+            for g, w in zip(got, want):
+                assert g.stats.records_returned == w.stats.records_returned
+                if w.geo is None:
+                    assert g.geo is None
+                    continue
+                assert np.array_equal(g.geo.x.view(np.int64), w.geo.x.view(np.int64))
+                assert np.array_equal(g.geo.y.view(np.int64), w.geo.y.view(np.int64))
+                assert np.array_equal(g.extras["tid"], w.extras["tid"])
+        assert torch.cuda.memory_allocated() > mem0
+        srv.invalidate()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == mem0
+
+
+def test_batcher_on_card_matches_host(card, tmp_path):
+    """The data feed's batches on the card equal the numpy path's, and its
+    shard reads go through kernels 1-2 on the prefetch thread."""
+    from repro_torch.data.pipeline import Prefetcher, TrajectoryBatcher
+    from repro_torch.data.tokenizer import GeoTokenizer
+
+    root = _serve_lake(tmp_path / "lake")
+    box = (-8.68, 41.12, -8.58, 41.2)
+
+    def batches(device):
+        b = TrajectoryBatcher([root], GeoTokenizer((-8.70, 41.10, -8.50, 41.25), order=6),
+                              seq_len=128, global_batch=16, bbox=box, loop=False,
+                              seed=0, device=device)
+        return [x["tokens"] for x in Prefetcher(b)]
+
+    counts0 = (fkernel.decode_stream.launches, mkernel.segminmax_refine.launches)
+    got = batches("cuda")
+    counts1 = (fkernel.decode_stream.launches, mkernel.segminmax_refine.launches)
+    want = batches("host")
+    assert len(got) == len(want) > 0
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert all(c1 > c0 for c0, c1 in zip(counts0, counts1))
+
+
 # ---------------------------------------------------------- flash attention
 def _within_bf16_bound(got, q, k, v, causal):
     """Hold a bf16 output to the float32 plain version on the same

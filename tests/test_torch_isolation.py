@@ -3,7 +3,8 @@
 A subprocess blocks both imports (``sys.modules[...] = None`` makes any
 import of them raise), then imports the port, writes a file and reads it
 back on the CPU, round-trips an array through the miniblock codec, writes a
-sharded dataset and scans it, builds a reduced dense LM on the CPU, runs its
+sharded dataset and scans it, answers a query-server wave and draws one
+data-feed batch over it, builds a reduced dense LM on the CPU, runs its
 forward and serves two requests, and checks that every entry point's
 default device asks for a card.
 """
@@ -66,12 +67,28 @@ scans = [sc.scan(bbox=bbox, refine=True, device=d, filter=Range("d", 10.0, 90.0)
 for g, e, s in scans:
     assert s.records_returned == dev[2].records_returned and s.shards_total == 3
     assert np.array_equal(g.x.view(np.int64), dev[0].x.view(np.int64))
+import repro_torch.baselines.geoparquet_like, repro_torch.baselines.shapefile, repro_torch.baselines.geojson_format
+from repro_torch.data.pipeline import TrajectoryBatcher
+from repro_torch.data.tokenizer import GeoTokenizer
+from repro_torch.serve import SpatialQueryServer
+
+with SpatialQueryServer(sc, device="cpu") as qsrv:
+    q = qsrv.submit(bbox, filter=Range("d", 10.0, 90.0))
+    qsrv.run()
+assert q.stats.records_returned == dev[2].records_returned
+assert np.array_equal(q.geo.x.view(np.int64), dev[0].x.view(np.int64))
+tok = GeoTokenizer((-8.70, 41.10, -8.50, 41.25))
+batch = next(iter(TrajectoryBatcher([lake], tok, seq_len=32, global_batch=4, bbox=bbox,
+                                    device="cpu")))
+assert batch["tokens"].shape == (1, 4, 32) and (batch["tokens"][..., 0] == 1).all()
 if not torch.cuda.is_available():
     for call in (lambda: encode(x), lambda: compress_array(x),
                  lambda: decompress_array(buf, x.shape),
                  lambda: write_dataset(lake + "-2", columns=cols, n_shards=2),
                  lambda: sc.scan(bbox=bbox, refine=True),
-                 lambda: Compactor(Catalog.open(lake))):
+                 lambda: Compactor(Catalog.open(lake)),
+                 lambda: SpatialQueryServer(sc),
+                 lambda: TrajectoryBatcher([lake], tok, seq_len=32, global_batch=4)):
         try:
             call()
         except RuntimeError as e:

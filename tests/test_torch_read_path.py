@@ -10,6 +10,7 @@ also reads the other's file.
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -267,15 +268,44 @@ def test_integer_coordinates_refine_on_host(tmp_path, rng):
             tr.read_columnar(bbox=b, refine=True, device="cpu", keep_on_device=True)
 
 
+def _chunk_coords(data):
+    """x, y of a row group read on a device: its chunks' streams decoded on
+    the CPU (x and y pages interleave in a stream) and host chunks' values,
+    in record order."""
+    xs, ys = [], []
+    for ch in data.chunks:
+        if ch.kind == "host":
+            xs.append(ch.x)
+            ys.append(ch.y)
+            continue
+        vals = tops.decode_page_stream(ch.stream, device="cpu")
+        pages = np.split(vals, np.cumsum(ch.stream.counts)[:-1])
+        xs += pages[0::2]
+        ys += pages[1::2]
+    return np.concatenate(xs), np.concatenate(ys)
+
+
 def test_read_row_group_matches_reference(pt_files):
+    """``"host"`` against the reference's ``"cpu"`` (decoded arrays);
+    ``"cpu"`` against the same through its unlaunched chunks, whose record
+    ranges tile the row group."""
     jp, tp, _ = pt_files
     with JReader(jp) as jr, TReader(tp) as tr:
-        for rg in range(len(jr.footer["row_groups"])):
-            a, b = jr.read_row_group(rg), tr.read_row_group(rg)
+        for rg, device in itertools.product(range(len(jr.footer["row_groups"])),
+                                            ("host", "cpu")):
+            a, b = jr.read_row_group(rg), tr.read_row_group(rg, device=device)
             assert a.n_records == b.n_records and a.nbytes == b.nbytes
             assert np.array_equal(a.rec_vcounts, b.rec_vcounts)
-            assert np.array_equal(_bits(a.x), _bits(b.x))
-            assert np.array_equal(_bits(a.y), _bits(b.y))
+            if device == "host":
+                assert b.chunks is None
+                bx, by = b.x, b.y
+            else:
+                assert b.x is None and b.y is None
+                assert b.chunks[0].rec_lo == 0 and b.chunks[-1].rec_hi == b.n_records
+                assert all(c.rec_hi == d.rec_lo for c, d in zip(b.chunks, b.chunks[1:]))
+                bx, by = _chunk_coords(b)
+            assert np.array_equal(_bits(a.x), _bits(bx))
+            assert np.array_equal(_bits(a.y), _bits(by))
             for k in a.extras:
                 assert np.array_equal(_bits(a.extras[k]), _bits(b.extras[k]))
 
@@ -284,8 +314,11 @@ def test_default_device_needs_a_card(pt_files, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     _, tp, _ = pt_files
-    with TReader(tp) as tr, pytest.raises(RuntimeError, match="no CUDA device"):
-        tr.read_columnar(bbox=(0.0, 0.0, 1.0, 1.0), refine=True)
+    with TReader(tp) as tr:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tr.read_columnar(bbox=(0.0, 0.0, 1.0, 1.0), refine=True)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tr.read_row_group(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_write(tmp_path / "x.spqf", columns=tcol.from_ragged(
             *_trajectories(np.random.default_rng(1), n_rec=60)[0]))
