@@ -108,6 +108,32 @@ Between phases 3 and 4 run the four paths added after them, in the order
     then the same on ``"host"``: every batch equal bit for bit, kernels 1
     and 2 launched on the card and nothing on the host.
 
+After phase 5 runs phase 4c, the other LM families, every launch count set
+to 0 just before it (read after it: ``launches_families`` on the kernel
+lines, kernel 6's summed with phase 4's into ``launches``):
+
+4c. (a) spatial-lm (the paper's Mamba2 trajectory LM, at
+    ``GeoTokenizer(PORTO_BBOX, order=6)``'s vocab of 4,099, float32, seeded
+    weights) serving the lake: the first 16 batches of 3d's
+    ``TrajectoryBatcher`` on ``"cuda"`` (kernels 1 and 2 launch) give 256
+    prompts of 16 tokens (BOS + 15 cells, as ``examples/serve_lm.py``
+    sends); ``BatchedServer(max_batch=32, max_len=192)`` answers all of
+    them at once with 64 new tokens each (wall, tokens/s, TTFT and latency
+    percentiles). The first wave's prefill logits are held against the same
+    call on the CPU, and the share of the first wave's greedy tokens equal
+    to a CPU server's is printed (see :func:`spatial_lm_serve`);
+    (b) each other family alone at its published widths and depth (arctic
+    at 2 of 35 layers), bf16 compute over the config's ``param_dtype``,
+    freed before the next: ``forward`` on (2, 4096) (whisper with 2,048
+    frames, pixtral with 256 patches and 3,840 tokens) launches kernel 6
+    once per attention call where ``attn_impl="flash"`` (whisper's 24
+    encoder calls non-causal), its logits held against the plain attention
+    and a float32 forward; prefill + one decode step against the forward in
+    float32; a ``BatchedServer(max_batch=4)`` answers 8 requests; at full
+    width qwen2-moe's ``moe_block`` against a compute-all-experts loop and
+    mamba2's ``ssm_forward`` against its stepped recurrence (see
+    :func:`family_run`). One ``lm_family`` line each.
+
 Every line is one JSON object. The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
 table, printed just before the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -157,6 +183,20 @@ SERVE_SPANS = ("device.h2d", "device.refine_multi_launch", "device.refine_cached
                "device.gather")
 # Data feed: the reference pipeline benchmark's settings (benchmarks/bench_pipeline.py)
 FEED_SEQ, FEED_BATCH = 128, 16
+# spatial-lm serving the lake (examples/serve_lm.py's prompts: BOS + 15 cells, a
+# 192-position cache): the first 16 feed batches, 256 prompts, 64 new tokens each
+SPATIAL_PROMPTS = (16, 16)                       # feed batches, prompt tokens
+SPATIAL_LOAD = (32, 192, 64)                     # max_batch, max_len, max_new_tokens
+# the other families at their published widths: (config, attn_impl, depth cut or None).
+# Flash where kernel 6 takes the heads; minicpm3's MLA (q/k 96 wide, v 64) keeps its
+# shipped "blocked"; mamba2 has no attention. Arctic's 480 B parameters cannot fit
+# one card: 2 of its 35 layers (55 GB of bf16).
+FAMILY_RUNS = (("mamba2-130m", "ref", None), ("zamba2-1.2b", "flash", None),
+               ("qwen2-moe-a2.7b", "flash", None), ("minicpm3-4b", "blocked", None),
+               ("whisper-medium", "flash", None), ("pixtral-12b", "flash", None),
+               ("arctic-480b", "flash", 2))
+FAMILY_FRAMES = 2048            # whisper: 4096 positions' audio after its 2x downsample
+FAMILY_DECODE_SEQ = 256
 DEVICE = "cuda"
 
 
@@ -1504,9 +1544,31 @@ FLASH_SHAPES = [  # tests/test_kernels.py of the reference: (b, hq, hkv, sq, sk,
 ]
 
 
+def family_flash_shapes() -> list[tuple[str, tuple]]:
+    """(label, (b, hq, hkv, sq, sk, d, causal)) of every flash call that
+    phase 4c's forwards make: each flash family's causal self-attention over
+    ``LM_SEQ`` positions (zamba2's shared block, whisper's decoder) and
+    whisper's non-causal encoder over ``FAMILY_FRAMES`` frames."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for name, impl, _ in FAMILY_RUNS:
+        if impl != "flash":
+            continue
+        cfg = get_config(name)
+        heads = (LM_BATCH, cfg.n_heads, cfg.n_kv_heads)
+        d = cfg.resolved_head_dim
+        out.append((name, (*heads, LM_SEQ, LM_SEQ, d, True)))
+        if cfg.family == "encdec":
+            out.append((f"{name}_encoder", (*heads, FAMILY_FRAMES, FAMILY_FRAMES, d, False)))
+    return out
+
+
 def check_flash(seed: int) -> list[dict]:
     """Phase 5: both flash kernels against their plain version through
-    ``ops.attention``, and their times at the LM path's shape.
+    ``ops.attention``, at the LM path's shape, at every shape that phase
+    4c's forwards give the bf16 kernel (:func:`family_flash_shapes`), and at
+    the reference's shapes; their times at the LM path's shape.
 
     Tolerances. Every element of a kernel's output is held to the float32
     plain version on the same input values. bf16 (the sm90 kernel) rounds
@@ -1541,6 +1603,7 @@ def check_flash(seed: int) -> list[dict]:
         return f"{dt}_{'x'.join(map(str, sh[:6]))}{'' if sh[6] else '_noncausal'}"
 
     cases = [("main_bf16", main_shape, torch.bfloat16), ("main_f32", main_shape, torch.float32)]
+    cases += [(f"{fam}_bf16", sh, torch.bfloat16) for fam, sh in family_flash_shapes()]
     cases += [(name(sh, dt), sh, dtype) for dt, dtype in (("bf16", torch.bfloat16),
                                                          ("f32", torch.float32))
               for sh in FLASH_SHAPES]
@@ -1623,6 +1686,396 @@ def check_flash(seed: int) -> list[dict]:
                  shape=dict(shape, dtype="float32"))]
 
 
+# ---------------------------------------------------------------- LM families
+def spatial_lm_serve(args, lake: Path, bbox, counters) -> dict:
+    """Phase 4c (a): spatial-lm, at the tokenizer's vocab, serving trajectory
+    continuations whose prompts are read from the Porto lake on the card.
+
+    Tolerance of the prefill logits against the same call on the CPU
+    (float32 both, TF32 off): 1e-4 of max |logits|. The two take the same
+    float32 sums in other orders; a product of length K rounds by about
+    sqrt(K) * 2^-24 of its scale (K <= 1024 here: 2e-6), and 12 layers of
+    about six products in series give sqrt(72) * 2e-6 = 1.6e-5, so 1e-4
+    leaves a margin of six.
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TrajectoryBatcher
+    from repro_torch.data.synthetic import PORTO_BBOX
+    from repro_torch.data.tokenizer import GeoTokenizer
+    from repro_torch.models import build_model, params_to
+    from repro_torch.serve import BatchedServer
+
+    n_batches, prompt_len = SPATIAL_PROMPTS
+    max_batch, max_len, new_tokens = SPATIAL_LOAD
+    tok = GeoTokenizer(PORTO_BBOX, order=6)
+    cfg = dataclasses.replace(get_config("spatial-lm"), vocab=tok.vocab)
+    t0 = time.perf_counter()
+    it = iter(TrajectoryBatcher([lake], tok, seq_len=FEED_SEQ, global_batch=FEED_BATCH,
+                                bbox=bbox, loop=False, seed=0, device=DEVICE))
+    batches = [next(it) for _ in range(n_batches)]
+    it.close()
+    read_s = time.perf_counter() - t0
+    read_launches = {c.kname: c.launches for c in counters}
+    for name in FILE_KERNELS[:2]:
+        require(read_launches[name] > 0, f"kernel {name} was not launched by the prompt read")
+    prompts = [row[:prompt_len] for b in batches for row in b["tokens"].reshape(-1, FEED_SEQ)]
+    require(len(prompts) == n_batches * FEED_BATCH and all(p[0] == 1 for p in prompts),
+            "the prompts are not BOS-led trip prefixes")
+
+    model = build_model(cfg)
+    params = model.init(args.seed, device=DEVICE)
+    srv = BatchedServer(cfg, params, max_batch=max_batch, max_len=max_len)
+    obs.enable()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        srv.submit(p, max_new_tokens=new_tokens, rid=i)
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    obs.disable()
+    require(sorted(r.rid for r in done) == list(range(len(prompts))),
+            "the spatial-lm server did not answer every request")
+    require(all(1 <= len(r.out_tokens) <= new_tokens and max(r.out_tokens) < cfg.vocab
+                for r in done), "a spatial-lm answer has a bad length or token")
+    n_tok = sum(len(r.out_tokens) for r in done)
+    ttft = np.array([r.t_first - r.t_submit for r in done])
+    lat = np.array([r.t_done - r.t_submit for r in done])
+    qs = {"p50": 50, "p99": 99}
+
+    # hold: the first wave's prefill on the card against the same call on the CPU
+    wave = np.stack(prompts[:max_batch])
+    cpu_params = params_to(params, "cpu")
+    logits = {}
+    for dev, ps in ((DEVICE, params), ("cpu", cpu_params)):
+        cache = model.init_cache(max_batch, max_len, device=dev)
+        cache["pos"] = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
+        logits[dev], _ = model.forward_with_cache(ps, {"tokens": wave}, cache)
+    want = logits["cpu"].float()
+    err = float((logits[DEVICE].float().cpu() - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    # the same first wave served on the CPU: the share of greedy tokens that agree
+    cpu_srv = BatchedServer(cfg, cpu_params, max_batch=max_batch, max_len=max_len)
+    for i, p in enumerate(prompts[:max_batch]):
+        cpu_srv.submit(p, max_new_tokens=new_tokens, rid=i)
+    on_cpu = {r.rid: r.out_tokens for r in cpu_srv.run()}
+    on_card = {r.rid: r.out_tokens for r in done if r.rid < max_batch}
+    pairs = [(a, b) for i in on_cpu for a, b in zip(on_card[i], on_cpu[i])]
+    out = {"config": "spatial-lm", "vocab": cfg.vocab, "prompts": len(prompts),
+           "prompt_len": prompt_len, "read_s": read_s, "read_launches": read_launches,
+           "max_batch": max_batch, "max_len": max_len, "max_new_tokens": new_tokens,
+           "new_tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_s": {k: float(np.percentile(ttft, q)) for k, q in qs.items()},
+           "latency_s": {k: float(np.percentile(lat, q)) for k, q in qs.items()},
+           "prefill_vs_cpu": {"max_abs": err, "tolerance_max_abs": tol,
+                              "tolerance": "1e-4 max |cpu logits|"},
+           "greedy_tokens_equal_cpu": sum(a == b for a, b in pairs) / len(pairs),
+           "first_tokens_equal_cpu": sum(on_card[i][0] == on_cpu[i][0] for i in on_cpu)
+           / len(on_cpu)}
+    emit({"spatial_lm_serve": out})
+    require(err <= tol, f"spatial-lm prefill logits differ from the CPU's by {err} > {tol}")
+    del srv, cpu_srv, params, logits
+    return out
+
+
+def family_batch(cfg, rng, b: int, s: int, frames: int) -> dict:
+    """``s`` positions: a vlm's patches in front of its tokens, an encdec's
+    ``frames`` audio frames beside them."""
+    n_tok = s - cfg.vision_tokens if cfg.family == "vlm" else s
+    out = {"tokens": rng.integers(0, cfg.vocab, (b, n_tok)).astype(np.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(0, 1, (b, frames, cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.normal(0, 1, (b, cfg.vision_tokens, cfg.frontend_dim)).astype(
+            np.float32)
+    return out
+
+
+def row_max_abs(a, b, rows: int = 1024):
+    """max |a - b| over the last axis, one value per position."""
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    return np.concatenate([(a2[i:i + rows].float() - b2[i:i + rows].float()).abs()
+                           .amax(-1).cpu().numpy() for i in range(0, a2.shape[0], rows)])
+
+
+def moe_full_width_check(cfg, params, rng) -> dict:
+    """qwen2-moe's layer-0 ``moe_block`` on 64 tokens, dropless, float32,
+    against a loop that computes every routed expert of every token
+    (``tests/test_moe.py``'s ``dense_reference``). Tolerance: 1e-4 of
+    max |reference| (float32 sums in other orders)."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import moe_block, top_k
+
+    c = dataclasses.replace(cfg, dtype="float32",
+                            moe=dataclasses.replace(cfg.moe,
+                                                    capacity_factor=float(cfg.moe.n_experts)))
+    lp = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict) else v[0])
+          for k, v in params["layers"]["moe"].items()}
+    x = torch.from_numpy(rng.normal(0, 1, (1, 64, cfg.d_model)).astype(np.float32)).to(DEVICE)
+    got, _ = moe_block(c, lp, x)
+    got, xs = got[0], x[0]
+    logits = xs @ lp["router"]
+    e_pad = lp["router"].shape[1]
+    logits = logits.masked_fill(torch.arange(e_pad, device=DEVICE) >= cfg.moe.n_experts, -1e30)
+    gv, gi = top_k(torch.softmax(logits, -1), cfg.moe.top_k)
+    gv = gv / gv.sum(-1, keepdim=True)
+    want = torch.zeros_like(xs)
+    for t in range(xs.shape[0]):
+        for j in range(cfg.moe.top_k):
+            e = int(gi[t, j])
+            h = F.silu(xs[t] @ lp["w_gate"][e]) * (xs[t] @ lp["w_up"][e])
+            want[t] += gv[t, j] * (h @ lp["w_down"][e])
+    sh = lp["shared"]
+    want += (F.silu(xs @ sh["w_gate"]) * (xs @ sh["w_up"])) @ sh["w_down"]
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    require(err <= tol, f"moe_block differs from the compute-all-experts loop by {err} > {tol}")
+    return {"tokens": 64, "max_abs": err, "tolerance_max_abs": tol}
+
+
+def ssd_full_width_check(cfg, params, rng) -> dict:
+    """mamba2-130m's layer-0 ``ssm_forward`` on (1, 256), float32 products,
+    against ``ssm_decode_step`` stepped token by token (the chunked dual
+    form against the recurrence, ``tests/test_ssm.py``). Tolerance: 1e-4 of
+    max |forward| (float32 sums in other orders)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import ssm
+
+    c = dataclasses.replace(cfg, dtype="float32", ssd_matmul_dtype="float32")
+    lp = {k: v[0] for k, v in params["layers"]["ssm"].items()}
+    x = torch.from_numpy(rng.normal(0, 0.5, (1, 256, cfg.d_model)).astype(np.float32)).to(DEVICE)
+    full, _ = ssm.ssm_forward(c, lp, x)
+    cache = ssm.init_ssm_cache(c, 1, torch.float32, DEVICE)
+    steps = []
+    for t in range(x.shape[1]):
+        y, cache = ssm.ssm_decode_step(c, lp, x[:, t:t + 1], cache)
+        steps.append(y[:, 0])
+    err = float((full - torch.stack(steps, 1)).abs().max())
+    tol = 1e-4 * float(full.abs().max())
+    require(err <= tol, f"ssm_forward differs from the stepped recurrence by {err} > {tol}")
+    return {"positions": 256, "max_abs": err, "tolerance_max_abs": tol}
+
+
+def family_run(args, name: str, impl: str, depth: int | None, sm90) -> dict:
+    """Phase 4c (b): one family at its published widths: the forward and its
+    checks, the decode check, a short serve, and the full-width checks.
+
+    Logits. The forward (attention ``impl``) and the same forward with the
+    plain attention are both held against a float32 forward of the same
+    weights and tokens: max |impl - plain| <= 2 max |plain - float32| (the
+    rule of :func:`lm_path`). A MoE routes each token in float32 on bf16
+    activations, and bf16 can flip a near-tie between two experts; a flip
+    moves that position's logits by a whole expert's output, and flips
+    cascade through the layers, so any two bf16 paths drift apart by about
+    as much as bf16 and float32 do (qwen2-moe: top-1 agreement 0.825
+    between flash and plain, 0.827 between plain and float32). So for the
+    MoE families the bound must hold at 99.9 % of positions, and the top-1
+    agreement of the two bf16 paths has a floor of 0.9 times that of the
+    plain path with float32: room for the sampling of 8,192 positions,
+    while a fault in the attention would take agreement towards 0. The
+    kernel itself is held element by element at each of these forwards'
+    attention shapes in phase 5 (:func:`family_flash_shapes`); this rule is
+    the end-to-end check on top of that.
+
+    Launches. ``path_launches`` counts the forward's and the short serve's
+    (whose cached attention takes the plain path, as the reference's does);
+    the encoder alone, the timed and the profiled forwards and the timed
+    decode step are counted apart as ``measurement_launches``.
+
+    Decode. A float32 forward over S positions against a float32 prefill of
+    S - 1 (an SSM's in whole chunks, then the rest) and one decode step:
+    ``tests/test_models.py``'s 2e-3 relative. As there, everything is
+    float32, the SSD's intra-chunk products too (the recurrence of a decode
+    step has no bf16 products to match), and the MoE families run dropless
+    (capacity_factor = n_experts).
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, flash_calls
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve import BatchedServer
+
+    base = get_config(name)
+    cfg = dataclasses.replace(base, attn_impl=impl, n_layers=depth or base.n_layers)
+    model = build_model(cfg)
+    rng = np.random.default_rng(args.seed + 4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(args.seed, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tensors(params)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    batch = family_batch(cfg, rng, LM_BATCH, LM_SEQ, FAMILY_FRAMES)
+
+    c0 = sm90.launches
+    got, aux, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    launches = sm90.launches - c0
+    require(tuple(got.shape) == (LM_BATCH, LM_SEQ, cfg.vocab) and got.dtype == torch.bfloat16,
+            f"{name}: forward gave {got.dtype} {tuple(got.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{name}: forward gave non-finite logits")
+    require(launches == flash_calls(cfg),
+            f"{name}: {launches} flash launches in one forward, expected {flash_calls(cfg)}")
+    line = {"config": name, "attn_impl": impl, "n_layers": cfg.n_layers,
+            "param_dtype": cfg.param_dtype, "n_params": sum(t.numel() for t in leaves),
+            "param_gb": param_bytes / 1e9, "init_s": init_s, "forward_launches": launches,
+            "aux": {k: float(v) for k, v in aux.items()}}
+    # measurement runs (the encoder alone, the timed and the profiled
+    # forwards): their launches are reported apart, not as the path's
+    n_path = sm90.launches
+    if cfg.family == "encdec":
+        model_mod._encode(cfg, params, batch)
+        torch.cuda.synchronize()
+        line["encoder_noncausal_launches"] = sm90.launches - n_path
+        require(line["encoder_noncausal_launches"] == cfg.n_encoder_layers,
+                f"{name}: the encoder launched {line['encoder_noncausal_launches']} times")
+    line["forward_ms"] = cuda_ms(lambda: model.forward(params, batch), iters=1, warmup=0)
+    line["device_split"] = device_split(lambda: model.forward(params, batch))
+    measured = sm90.launches - n_path
+    sm90.launches = n_path
+
+    plain, _, _ = build_model(dataclasses.replace(cfg, attn_impl="ref")).forward(params, batch)
+    f32_model = build_model(dataclasses.replace(cfg, attn_impl="ref", dtype="float32"))
+    full, _, _ = f32_model.forward(params, batch)
+    torch.cuda.synchronize()
+    got_plain, plain_f32 = diff_stats(got, plain), diff_stats(plain, full)
+    tol = 2 * plain_f32["max_abs"]
+    rule = {"impl_vs_plain": got_plain, "plain_vs_float32": plain_f32,
+            "impl_vs_float32": diff_stats(got, full), "tolerance_max_abs": tol}
+    if cfg.moe is not None:
+        rows = row_max_abs(got, plain)
+        rule["share_within_tolerance"] = float((rows <= tol).mean())
+        rule["top1_floor"] = 0.9 * plain_f32["top1_agree"]
+        ok = (rule["share_within_tolerance"] >= 0.999
+              and got_plain["top1_agree"] >= rule["top1_floor"])
+    else:
+        ok = got_plain["max_abs"] <= tol
+    line["logits"] = rule
+    del got, plain, full
+
+    # decode: float32, S - 1 prefilled then one step, against the forward's last row
+    s_dec = 64 if name == "arctic-480b" else FAMILY_DECODE_SEQ
+    dcfg = dataclasses.replace(cfg, attn_impl="ref", dtype="float32", ssd_matmul_dtype="float32")
+    if cfg.moe is not None:
+        dcfg = dataclasses.replace(dcfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    dmodel = build_model(dcfg)
+    s_tot = s_dec + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    db = family_batch(dcfg, rng, LM_BATCH, s_tot, FAMILY_DECODE_SEQ // 2)
+    last, _, _ = dmodel.forward(params, db)
+    last = last[:, -1]
+    toks = db["tokens"]
+    cut = toks.shape[1] - 1
+    if cfg.ssm is not None:
+        cut = cut // cfg.ssm.chunk * cfg.ssm.chunk
+    cache = dmodel.init_cache(LM_BATCH, s_tot, device=DEVICE)
+    _, cache = dmodel.forward_with_cache(params, dict(db, tokens=toks[:, :cut]), cache)
+    if cut < toks.shape[1] - 1:
+        _, cache = dmodel.forward_with_cache(params, {"tokens": toks[:, cut:-1]}, cache)
+    step, _ = dmodel.decode_step(params, toks[:, -1:], cache)
+    dec_rel = float((step[:, -1] - last).abs().max() / last.abs().max())
+    line["decode_vs_forward"] = {"positions": s_tot, "max_rel": dec_rel, "tolerance_rel": 2e-3}
+    del cache, last, step
+
+    # serve: a few requests through the card's server, then one timed decode step
+    srv = BatchedServer(cfg, params, max_batch=SERVE_CHECK_REQUESTS // 2, max_len=SERVE_MAX_LEN)
+    t0 = time.perf_counter()
+    for i, n in enumerate(rng.integers(16, 65, SERVE_CHECK_REQUESTS)):
+        srv.submit(rng.integers(3, cfg.vocab, int(n)).astype(np.int32), max_new_tokens=16, rid=i)
+    done = srv.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    require(sorted(r.rid for r in done) == list(range(SERVE_CHECK_REQUESTS))
+            and all(1 <= len(r.out_tokens) <= 16 for r in done),
+            f"{name}: the server did not answer every request")
+    line["path_launches"] = sm90.launches - c0
+    n_path = sm90.launches
+    srv.submit(done[0].prompt, max_new_tokens=3, rid=SERVE_CHECK_REQUESTS)
+    srv._fill_slots()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv._decode_once()
+    torch.cuda.synchronize()
+    line["decode_step_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    line["measurement_launches"] = measured + sm90.launches - n_path
+    sm90.launches = n_path
+    line["serve_check"] = {"requests": len(done), "wall_s": serve_s,
+                           "new_tokens": sum(len(r.out_tokens) for r in done)}
+    del srv
+    if name == "qwen2-moe-a2.7b":
+        line["moe_block_check"] = moe_full_width_check(cfg, params, rng)
+    if name == "mamba2-130m":
+        line["ssd_check"] = ssd_full_width_check(cfg, params, rng)
+    line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit({"lm_family": line})
+    require(ok, f"{name}: logits outside the rule: {rule}")
+    require(dec_rel <= 2e-3, f"{name}: decode differs from the forward by {dec_rel} relative")
+    del params, leaves
+    torch.cuda.empty_cache()
+    return line
+
+
+def expandable_segments(on: bool) -> None:
+    """Switch the caching allocator's expandable segments at run time."""
+    import torch
+
+    setting = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setting or torch.cuda.memory._set_allocator_settings)(f"expandable_segments:{on}")
+
+
+def families_path(args, lake: Path, bbox, counters) -> dict:
+    """Phase 4c: spatial-lm serving the lake, then each other family alone.
+
+    The phase runs with expandable segments, the phases before it with the
+    default allocator. Arctic's float32 check forward needs about 77 GB of
+    the card right after pixtral's tree was freed; with fixed segments, an
+    H100 run of this phase ran out of memory there with 9.6 GiB reserved
+    but unallocated (fragments of the earlier trees)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    expandable_segments(True)
+    for c in counters:
+        c.launches = 0
+    out = {"spatial_lm": spatial_lm_serve(args, lake, bbox, counters)}
+    torch.cuda.empty_cache()
+    out["families"] = {}
+    sm90 = next(c for c in counters if c.kname == LM_KERNELS[0])
+    for name, impl, depth in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        before = torch.cuda.memory_allocated()
+        line = family_run(args, name, impl, depth, sm90)
+        line["wall_s"] = time.perf_counter() - t0
+        line["memory_left_bytes"] = torch.cuda.memory_allocated() - before
+        out["families"][name] = {k: line[k] for k in ("forward_ms", "forward_launches",
+                                                        "path_launches", "param_gb", "wall_s",
+                                                        "memory_left_bytes")}
+        # the next tree needs the card to itself
+        require(line["memory_left_bytes"] < 1 << 28,
+                f"{name} left {line['memory_left_bytes']} bytes allocated on the card")
+    out["launches"] = {c.kname: c.launches for c in counters}
+    torch.cuda.empty_cache()
+    expandable_segments(False)
+    return out
+
+
 # ---------------------------------------------------------------- entry
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1640,6 +2093,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside the script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as ak
     from repro_torch.kernels.fp_delta import kernel as fk
@@ -1666,7 +2120,11 @@ def main() -> int:
     reduced = {"lm": {"config": LM_CONFIG, "shape": "train_4k", "seq_len": LM_SEQ,
                       "global_batch": [LM_FULL_BATCH, LM_BATCH]},
                "serve": {"query_counts": [[1, 16, 256], list(SERVE_COUNTS)],
-                         "sequential_queries": [SERVE_COUNTS[-1], len(QUERY_FRACS)]}}
+                         "sequential_queries": [SERVE_COUNTS[-1], len(QUERY_FRACS)]},
+               "families": {"shape": "train_4k", "global_batch": [LM_FULL_BATCH, LM_BATCH],
+                            **{name: {"n_layers": [get_config(name).n_layers, depth]}
+                               for name, _, depth in FAMILY_RUNS if depth},
+                            "arctic-480b_decode_check_positions": [FAMILY_DECODE_SEQ, 64]}}
     if args.n_traj != FULL_N_TRAJ:
         reduced["n_traj"] = [FULL_N_TRAJ, args.n_traj]
     emit({"reduced": reduced})
@@ -1694,32 +2152,40 @@ def main() -> int:
         feed["wall_s"] = time.perf_counter() - t0
         emit({"feed_path": feed})
         del ds
-    t0 = time.perf_counter()
-    codec = codec_path(data[0], counters)
-    codec["wall_s"] = time.perf_counter() - t0
-    emit({"codec_path": {k: v for k, v in codec.items() if not k.startswith("_")}})
-    table += check_codec(codec)
-    codec_launches = codec["launches"]
-    del data, codec
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    lm = lm_path(args, counters)
-    lm["wall_s"] = time.perf_counter() - t0
-    emit({"lm_path": lm})
-    table += check_flash(args.seed)
+        t0 = time.perf_counter()
+        codec = codec_path(data[0], counters)
+        codec["wall_s"] = time.perf_counter() - t0
+        emit({"codec_path": {k: v for k, v in codec.items() if not k.startswith("_")}})
+        table += check_codec(codec)
+        codec_launches = codec["launches"]
+        del data, codec
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lm = lm_path(args, counters)
+        lm["wall_s"] = time.perf_counter() - t0
+        emit({"lm_path": lm})
+        table += check_flash(args.seed)
+        # phase 4c reads its prompts from the lake of 3a, so it runs before the
+        # lake is removed
+        t0 = time.perf_counter()
+        fam = families_path(args, lake, main["_boxes"]["refine_10pct"], counters)
+        fam["wall_s"] = time.perf_counter() - t0
+        emit({"families_path": fam})
     launches = {**{n: main["launches"][n] for n in FILE_KERNELS},
                 **{n: codec_launches[n] for n in CODEC_KERNELS},
-                **{n: lm["launches"][n] for n in LM_KERNELS},
+                **{n: lm["launches"][n] + fam["launches"][n] for n in LM_KERNELS},
                 F32_FLASH: lm["float32_route"]["launches"][F32_FLASH]}
     launches_serve = {n: serve["launches"][n] for n in launches}
     serve_shape = serve["kernel_times"]
     launches_feed = {n: feed["launches"][n] for n in launches}
+    launches_4c = {n: fam["launches"][n] for n in launches}
     for row in table:
         emit({"kernel": row["name"], "mismatches": row["mismatches"],
               "kernel_ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
               "library_ms": row["library_ms"], "launches": launches[row["name"]],
               "launches_serve": launches_serve[row["name"]],
               "launches_feed": launches_feed[row["name"]],
+              "launches_families": launches_4c[row["name"]],
               "shape": row["shape"], "bytes": row["bytes"],
               **({"serve_shape": serve_shape[row["name"]]}
                  if row["name"] in serve_shape else {})})
@@ -1735,6 +2201,7 @@ def main() -> int:
     emit({"kernels": [{**{k: (launches[r["name"]] if k == "launches" else r[k]) for k in keys},
                        "launches_serve": launches_serve[r["name"]],
                        "launches_feed": launches_feed[r["name"]],
+                       "launches_families": launches_4c[r["name"]],
                        **({"serve_shape": {k: serve_shape[r["name"]][k]
                                            for k in ("ms", "device_ms", "bound_ms")}}
                           if r["name"] in serve_shape else {})} for r in table]})

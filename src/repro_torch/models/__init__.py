@@ -1,7 +1,8 @@
-"""The LM stack: dense decoder family (GQA attention + SwiGLU), its KV
-caches, and conversion of the reference's weights."""
+"""The LM stack: every family of the reference (dense, MoE, SSM, hybrid,
+encoder-decoder, vision-language) with GQA, MLA and cross-attention, their
+caches, the loss, and conversion of the reference's weights."""
 
-from .convert import params_from_jax
-from .model import Model, build_model
+from .convert import params_from_jax, params_to
+from .model import Model, build_model, flash_calls
 
-__all__ = ["Model", "build_model", "params_from_jax"]
+__all__ = ["Model", "build_model", "flash_calls", "params_from_jax", "params_to"]

@@ -1,6 +1,5 @@
-"""GQA attention (+qk-norm) with explicit KV caches
-(``repro/models/attention.py``, its GQA half; MLA and cross-attention are
-not ported yet).
+"""Attention blocks with explicit caches (``repro/models/attention.py``):
+GQA (+qk-norm), MLA (latent attention) and cross-attention.
 
 The ``impl`` knob picks the plain einsum (``ref``), the online-softmax
 scan over KV blocks in plain torch (``blocked``) or the flash-attention
@@ -8,7 +7,9 @@ kernel (``flash``: :func:`repro_torch.kernels.flash_attention.attention`,
 the CUDA kernel on a CUDA tensor). As in the reference, ``blocked`` and
 ``flash`` run only where no per-query positions and no valid-length mask
 are given: the full forward and the full-capacity prefill. Every other
-cached call takes ``ref``.
+cached call takes ``ref``, and cross-attention always does. The kernel
+takes one head dim for q, k and v, so MLA (whose q/k heads are wider than
+its v heads) runs ``ref`` or ``blocked``.
 
 Unlike the reference's pure functions, cached calls write the new K/V into
 the cache tensors in place (the reference's ``dynamic_update_slice``
@@ -191,3 +192,129 @@ def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
         "k": torch.zeros((batch, max_len, hkv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, hkv, hd), dtype=dtype, device=device),
     }
+
+
+# ----------------------------------------------------------------------- MLA
+def init_mla(gen, cfg, dtype, stack=()) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_dim = m.nope_head_dim + m.rope_head_dim
+    s, ax = tuple(stack), len(stack)
+    dev = gen.device
+    return {
+        "wq_a": dense_init(gen, (*s, d, m.q_lora_rank), ax, dtype=dtype),
+        "q_norm": torch.ones((*s, m.q_lora_rank), dtype=dtype, device=dev),
+        "wq_b": dense_init(gen, (*s, m.q_lora_rank, h * qk_dim), ax, dtype=dtype),
+        "wkv_a": dense_init(gen, (*s, d, m.kv_lora_rank + m.rope_head_dim), ax, dtype=dtype),
+        "kv_norm": torch.ones((*s, m.kv_lora_rank), dtype=dtype, device=dev),
+        "wkv_b": dense_init(gen, (*s, m.kv_lora_rank, h * (m.nope_head_dim + m.v_head_dim)),
+                            ax, dtype=dtype),
+        "wo": dense_init(gen, (*s, h * m.v_head_dim, d), ax, dtype=dtype),
+    }
+
+
+def _mla_qkv(cfg, p, x, positions):
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_lat = rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = (q_lat @ p["wq_b"].to(x.dtype)).reshape(b, s, h, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"].to(x.dtype)
+    c_kv, k_rope = kv_a[..., :m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)                      # (B,S,r)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # (B,S,1,rd)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, *, q_pos=None, k_valid_len=None):
+    m = cfg.mla
+    h = cfg.n_heads
+    b, s = q_nope.shape[:2]
+    kv = (c_kv.to(q_nope.dtype) @ p["wkv_b"].to(q_nope.dtype)).reshape(
+        b, -1, h, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+    k = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(*k_nope.shape[:3], m.rope_head_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    # the full-sequence path admits the blocked impl (asymmetric dv)
+    impl = cfg.attn_impl if (q_pos is None and k_valid_len is None) else "ref"
+    out = _sdpa(q, k, v, causal=True, q_pos=q_pos, k_valid_len=k_valid_len, impl=impl)
+    return out.reshape(b, s, h * m.v_head_dim) @ p["wo"].to(q_nope.dtype)
+
+
+def mla_forward(cfg, p, x, positions, *, cache=None, cache_pos=None):
+    """MLA attention; the cache holds the compressed latent and the rope
+    key, {c_kv: (B, Smax, r), k_rope: (B, Smax, 1, rd)}, written in place
+    at ``cache_pos`` (an int, or a (B,) tensor of per-slot offsets).
+    Returns (out, cache)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    if cache is None:
+        return _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope), None
+    s = x.shape[1]
+    if torch.is_tensor(cache_pos) and cache_pos.dim() != 0:
+        # per-slot positions (continuous batching): see gqa_forward
+        cc = _update_slots(cache["c_kv"], c_kv, cache_pos)
+        cr = _update_slots(cache["k_rope"], k_rope, cache_pos)
+        out = _mla_attend(cfg, p, q_nope, q_rope, cc, cr,
+                          q_pos=positions, k_valid_len=(cache_pos + s)[:, None, None])
+        return out, cache
+    pos0 = int(cache_pos)
+    smax = cache["c_kv"].shape[1]
+    pos = min(max(pos0, 0), smax - s)   # dynamic_update_slice clamps the offset
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    cc[:, pos:pos + s] = c_kv.to(cc.dtype)
+    cr[:, pos:pos + s] = k_rope.to(cr.dtype)
+    if s == smax:
+        # full-capacity prefill (static condition): attend over the fresh
+        # latents, which is equivalent and admits the blocked impl
+        out = _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope)
+    else:
+        out = _mla_attend(cfg, p, q_nope, q_rope, cc, cr,
+                          q_pos=positions if positions.dim() else positions[None],
+                          k_valid_len=pos0 + s)
+    return out, cache
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, 1, m.rope_head_dim), dtype=dtype, device=device),
+    }
+
+
+# --------------------------------------------------------------- cross-attn
+def init_cross_attention(gen, cfg, dtype, stack=()) -> dict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    s, ax = tuple(stack), len(stack)
+    return {
+        "wq": dense_init(gen, (*s, d, h * hd), ax, dtype=dtype),
+        "wk": dense_init(gen, (*s, d, h * hd), ax, dtype=dtype),
+        "wv": dense_init(gen, (*s, d, h * hd), ax, dtype=dtype),
+        "wo": dense_init(gen, (*s, h * hd, d), ax, dtype=dtype),
+    }
+
+
+def cross_attention(cfg, p, x, enc_kv=None, enc_out=None):
+    """Decoder-to-encoder attention, always the plain ``ref`` impl. Pass
+    the cached ``enc_kv`` at decode time or ``enc_out`` to compute K/V."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    if enc_kv is None:
+        k = (enc_out @ p["wk"].to(x.dtype)).reshape(b, -1, h, hd)
+        v = (enc_out @ p["wv"].to(x.dtype)).reshape(b, -1, h, hd)
+    else:
+        k, v = enc_kv["k"].to(x.dtype), enc_kv["v"].to(x.dtype)
+    out = _sdpa(q, k, v, causal=False, impl="ref")
+    return out.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+
+
+def make_cross_kv(cfg, p, enc_out):
+    b = enc_out.shape[0]
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, -1, h, hd)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, -1, h, hd)
+    return {"k": k, "v": v}

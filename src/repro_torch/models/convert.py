@@ -32,3 +32,9 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
         return _leaf(t, dev)
 
     return conv(tree)
+
+
+def params_to(tree: dict, device) -> dict:
+    """A parameter tree (nested dicts of tensors) copied to ``device``."""
+    return {k: params_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

@@ -11,6 +11,7 @@ the two packages carry the reference's weights across
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,12 +24,18 @@ def dtype_of(name: str) -> torch.dtype:
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0, scale: float = 1.0,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init on ``gen``'s device. ``shape`` may carry
-    leading stack axes (layers); ``in_axis`` names the fan-in axis."""
-    fan_in = shape[in_axis]
-    std = scale / float(fan_in) ** 0.5
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return w.mul_(std).to(dtype)
+    leading stack axes (layers, experts); ``in_axis`` names the fan-in axis.
+
+    The draw is float32, one trailing matrix at a time into an output of
+    ``dtype``, so the float32 scratch is one matrix, not the whole stack
+    (arctic's bf16 expert stacks would need 36 GB of it each)."""
+    std = scale / float(shape[in_axis]) ** 0.5
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for idx in np.ndindex(*shape[:-2]):
+        w = torch.empty(shape[-2:], dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        out[idx] = w.mul_(std)
+    return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
@@ -68,6 +75,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_embedding(n_pos: int, dim: int, device="cpu") -> torch.Tensor:
+    """Whisper-style fixed sinusoidal positions (encoder frames), built in
+    numpy float64 and cast to float32, as the reference builds them."""
+    pos = np.arange(n_pos)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / dim)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
+    return torch.from_numpy(emb.astype(np.float32)).to(device)
+
+
 # --------------------------------------------------------------------- MLP
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, stack=()) -> dict:
     s, ax = tuple(stack), len(stack)
@@ -83,3 +100,30 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ params["w_gate"].to(x.dtype)) \
         * (x @ params["w_up"].to(x.dtype))
     return h @ params["w_down"].to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None,
+                       impl: str = "gather"):
+    """Token-mean cross entropy (float32 accumulation); labels < 0 are
+    ignored and the count is clamped to 1. Returns (loss, count).
+
+    ``impl="gather"`` upcasts the logits to float32 and gathers the gold
+    logit. ``impl="onehot"`` keeps them in their own dtype: the max is
+    subtracted there, and only the exp and its sum run in float32 (the
+    reference's one-hot contraction picks the gold logit exactly, as the
+    gather does)."""
+    valid = (labels >= 0) if mask is None else mask & (labels >= 0)
+    safe = labels.clamp(min=0).long()[..., None]
+    count = valid.sum().clamp(min=1)
+    if impl == "gather":
+        logits32 = logits.float()
+        logz = torch.logsumexp(logits32, dim=-1)
+        gold = torch.gather(logits32, -1, safe)[..., 0]
+    else:
+        m = logits.amax(dim=-1)
+        shifted = logits - m[..., None]
+        sumexp = torch.exp(shifted.float()).sum(dim=-1)
+        logz = torch.log(sumexp) + m.float()
+        gold = torch.gather(logits, -1, safe)[..., 0].float()
+    nll = (logz - gold) * valid
+    return nll.sum() / count, count

@@ -12,7 +12,9 @@ so an admission wave prefills into *free* slots only: the wave runs on a
 fresh zero cache and only the admitted slots' rows are merged back, so
 in-flight slots keep their KV rows and decode positions. Attention masks
 per slot, so right-padding an uneven wave cannot leak into the generated
-tokens.
+tokens; SSM state carries the reference's small right-pad approximation
+for uneven waves (the recurrence has no positions to mask), kept so that
+the port's tokens equal the reference server's.
 
 The server runs on the device its parameters lie on, eagerly (no ``jit``);
 the model writes K/V rows into the cache in place. Latency accounting uses
@@ -43,6 +45,15 @@ class Request:
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+
+
+def _merge_rows(live, fresh, mask: torch.Tensor):
+    """``fresh``'s batch rows where ``mask`` holds, ``live``'s elsewhere, in a
+    tree of stacked caches (the leading axis is the layer/site stack; batch
+    is axis 1)."""
+    if isinstance(live, dict):
+        return {k: _merge_rows(live[k], fresh[k], mask) for k in live}
+    return torch.where(mask.reshape((1, -1) + (1,) * (live.dim() - 2)), fresh, live)
 
 
 class BatchedServer:
@@ -105,12 +116,9 @@ class BatchedServer:
         m = torch.from_numpy(mask).to(self.device)
         out = dict(live)
         out["pos"] = torch.where(m, fresh["pos"], live["pos"])
-        # leading axis is the layer stack; batch is axis 1
-        out["layers"] = {
-            k: torch.where(m.reshape((1, self.max_batch) + (1,) * (a.dim() - 2)),
-                           fresh["layers"][k], a)
-            for k, a in live["layers"].items()
-        }
+        for key in ("layers", "sites", "cross"):
+            if key in live:
+                out[key] = _merge_rows(live[key], fresh[key], m)
         return out
 
     def _fill_slots(self):

@@ -765,3 +765,101 @@ def test_lm_forward_on_card_launches_flash(card):
         params, {"tokens": toks})
     rel = float((flash - plain).abs().max() / plain.abs().max())
     assert rel < 1e-4, rel
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen2-moe-a2.7b", "arctic-480b", "mamba2-130m",
+                                  "zamba2-1.2b", "whisper-medium", "pixtral-12b", "spatial-lm"])
+def test_family_forward_on_card_matches_cpu(card, arch):
+    """Each family's reduced config (float32, ``attn_impl="flash"``) on the
+    card: one float32 flash launch per attention call (whisper's encoder
+    non-causal), and logits, loss and a prefill + decode within 1e-4
+    relative of the same model on the CPU (float32 sum order; TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models import build_model, flash_calls, params_to
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), attn_impl="flash")
+    rng = np.random.default_rng(5)
+    n_tok = 256 - cfg.vision_tokens if cfg.family == "vlm" else 256
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, n_tok)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(0, 1, (2, 128, cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(0, 1, (2, cfg.vision_tokens, cfg.frontend_dim)).astype(
+            np.float32)
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    gpu = params_to(cpu, card)
+    n0 = kernel.flash_attention_f32.launches
+    got, _, _ = model.forward(gpu, batch)
+    torch.cuda.synchronize()
+    assert kernel.flash_attention_f32.launches == n0 + flash_calls(cfg)
+    want, _, _ = model.forward(cpu, batch)
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert rel < 1e-4, rel
+    lg, _ = model.loss(gpu, batch)
+    lc, _ = model.loss(cpu, batch)
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    # prefill S - 1 positions, an SSM's in whole chunks and then the rest
+    toks = batch["tokens"]
+    cut = toks.shape[1] - 1
+    if cfg.ssm is not None:
+        cut = cut // cfg.ssm.chunk * cfg.ssm.chunk
+    outs = []
+    for params, dev in ((gpu, card), (cpu, "cpu")):
+        cache = model.init_cache(2, 384, device=dev)
+        _, cache = model.forward_with_cache(params, dict(batch, tokens=toks[:, :cut]), cache)
+        _, cache = model.forward_with_cache(params, {"tokens": toks[:, cut:-1]}, cache)
+        step, _ = model.decode_step(params, toks[:, -1:], cache)
+        outs.append(step.cpu())
+    rel = float((outs[0] - outs[1]).abs().max() / outs[1].abs().max())
+    assert rel < 1e-4, rel
+
+
+def test_moe_block_on_card_is_deterministic(card):
+    """The combine sums each token's k contributions in (token, k) order, no
+    atomics: two runs on the card give the same bits, in bf16 too."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import moe_block
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(), dtype="bfloat16")
+    p = build_model(cfg).init(0, device=card)["layers"]["moe"]
+    lp = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict) else v[0])
+          for k, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(6).normal(0, 1, (2, 512, cfg.d_model))
+                         .astype(np.float32)).to(card, torch.bfloat16)
+    a, _ = moe_block(cfg, lp, x)
+    b, _ = moe_block(cfg, lp, x)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_spatial_lm_server_on_card_matches_cpu(card):
+    """spatial-lm at the tokenizer's vocab (reduced widths, float32) serves
+    the same greedy tokens on the card as on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import PORTO_BBOX, porto_taxi_like
+    from repro_torch.data.tokenizer import GeoTokenizer
+    from repro_torch.models import build_model, params_to
+    from repro_torch.serve import BatchedServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok = GeoTokenizer(PORTO_BBOX, order=6)
+    cfg = dataclasses.replace(get_config("spatial-lm").reduced(), vocab=tok.vocab)
+    cpu = build_model(cfg).init(0, device="cpu")
+    gpu = params_to(cpu, card)
+    mat = tok.encode_trajectories(porto_taxi_like(8, seed=9), 64)
+    out = []
+    for params in (gpu, cpu):
+        srv = BatchedServer(cfg, params, max_batch=4, max_len=64)
+        for i in range(8):
+            srv.submit(mat[i][mat[i] > 0][:16], max_new_tokens=12, rid=i)
+        out.append({r.rid: r.out_tokens for r in srv.run()})
+    assert out[0] == out[1]

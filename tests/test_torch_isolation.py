@@ -5,7 +5,8 @@ import of them raise), then imports the port, writes a file and reads it
 back on the CPU, round-trips an array through the miniblock codec, writes a
 sharded dataset and scans it, answers a query-server wave and draws one
 data-feed batch over it, builds a reduced dense LM on the CPU, runs its
-forward and serves two requests, and checks that every entry point's
+forward and serves two requests, runs the forward and loss of every config's
+reduced variant (all six families), and checks that every entry point's
 default device asks for a card.
 """
 
@@ -114,6 +115,24 @@ for n in (5, 9):
     srv.submit(np.arange(3, 3 + n), max_new_tokens=4)
 served = srv.run()
 assert sorted(len(r.out_tokens) for r in served) == [4, 4]
+from repro_torch.configs import ARCHS
+families = set()
+for name in sorted(ARCHS):
+    c = get_config(name).reduced()
+    m = build_model(c)
+    p = m.init(0, device="cpu")
+    n_tok = 128 - c.vision_tokens if c.family == "vlm" else 128
+    b = {"tokens": np.arange(2 * n_tok, dtype=np.int32).reshape(2, n_tok) % c.vocab}
+    if c.family == "encdec":
+        b["frames"] = np.ones((2, 64, c.frontend_dim), np.float32)
+    if c.family == "vlm":
+        b["patches"] = np.ones((2, c.vision_tokens, c.frontend_dim), np.float32)
+    lg, aux, _ = m.forward(p, b)
+    loss, _ = m.loss(p, b)
+    assert lg.shape == (2, 128, c.vocab) and bool(torch.isfinite(lg).all()), name
+    assert bool(torch.isfinite(loss)) and set(aux) <= {"moe_aux_loss", "router_z_loss"}, name
+    families.add(c.family)
+assert families == {"dense", "moe", "ssm", "hybrid", "encdec", "vlm"}, families
 if not torch.cuda.is_available():
     try:
         model.init(0)

@@ -21,8 +21,13 @@ from repro.models.model import build_model as jbuild  # noqa: E402
 from repro.serve.scheduler import BatchedServer as JServer  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.synthetic import PORTO_BBOX, porto_taxi_like  # noqa: E402
+from repro_torch.data.tokenizer import GeoTokenizer  # noqa: E402
 from repro_torch.models import params_from_jax  # noqa: E402
 from repro_torch.serve import BatchedServer  # noqa: E402
+
+
+_TOK = GeoTokenizer(PORTO_BBOX, order=6)
 
 
 def _setup(arch="internlm2-1.8b", **over):
@@ -38,12 +43,32 @@ def internlm():
 
 
 @pytest.mark.parametrize("arch,over", [("internlm2-1.8b", {}),
-                                       ("qwen3-8b", {"n_kv_heads": 2})])
+                                       ("qwen3-8b", {"n_kv_heads": 2}),
+                                       ("granite-20b", {}),
+                                       ("minicpm3-4b", {}),
+                                       ("qwen2-moe-a2.7b", {}),
+                                       ("arctic-480b", {}),
+                                       ("mamba2-130m", {}),
+                                       ("zamba2-1.2b", {}),
+                                       ("whisper-medium", {}),
+                                       ("pixtral-12b", {}),
+                                       ("spatial-lm", {"vocab": _TOK.vocab})])
 def test_tokens_match_reference_server(arch, over):
+    """Every family: the same weights and prompts give the reference
+    server's tokens. Waves are uneven (prompts of 3-13 tokens, three slots),
+    so the SSM families also carry the reference's right-pad approximation;
+    whisper and pixtral are served text only (cross-attention over the zero
+    cache, no patches), as the reference serves them. spatial-lm serves
+    tokenized Porto trips at the tokenizer's vocab, as
+    ``examples/serve_lm.py`` does."""
     jcfg, tcfg, jp, tp = _setup(arch, **over)
     rng = np.random.default_rng(11)
-    prompts = [rng.integers(3, tcfg.vocab, int(n)).astype(np.int32)
-               for n in rng.integers(3, 14, 6)]
+    lens = rng.integers(3, 14, 6)
+    if arch == "spatial-lm":
+        mat = _TOK.encode_trajectories(porto_taxi_like(6, seed=9), 64)
+        prompts = [mat[i][mat[i] > 0][:int(n)].astype(np.int32) for i, n in enumerate(lens)]
+    else:
+        prompts = [rng.integers(3, tcfg.vocab, int(n)).astype(np.int32) for n in lens]
     news = [int(n) for n in rng.integers(2, 9, 6)]
     out = []
     for cls, cfg, params in ((JServer, jcfg, jp), (BatchedServer, tcfg, tp)):
@@ -145,3 +170,24 @@ def test_scheduler_uses_monotonic_clock_and_obs(internlm, monkeypatch, rng):
     assert obs.get_registry().histogram("serve.ttft_s").count == 3
     assert obs.get_registry().histogram("serve.latency_s").count == 3
     assert "p50" in obs.percentiles("serve.latency_s")
+
+
+def test_server_is_freed_without_the_cycle_collector(internlm, rng):
+    """Admission waves leave no reference cycle: a deleted server (and the
+    caches it holds on the card) goes at once, not at the next collection,
+    so the next model can have the memory."""
+    import gc
+    import weakref
+
+    _, cfg, _, params = internlm
+    srv = BatchedServer(cfg, params, max_batch=2, max_len=32)
+    for n in (4, 7, 5):
+        srv.submit(rng.integers(3, cfg.vocab, n).astype(np.int32), max_new_tokens=3)
+    srv.run()
+    ref = weakref.ref(srv)
+    gc.disable()
+    try:
+        del srv
+        assert ref() is None
+    finally:
+        gc.enable()
