@@ -134,7 +134,40 @@ lines, kernel 6's summed with phase 4's into ``launches``):
     mamba2's ``ssm_forward`` against its stepped recurrence (see
     :func:`family_run`). One ``lm_family`` line each.
 
-Every line is one JSON object. The kernel names are printed early under
+Last runs phase 4d, training, over the same lake, every launch count set to
+0 just before it. ``launches_train`` on the kernel lines counts its training
+paths: (a) up to the end of its fault drill, then (b) and (c); the step
+timings after (a)'s drill read a batcher of their own, counted apart as
+``measurement_launches``:
+
+4d. (a) spatial-lm at its published widths (12 Mamba2 layers, d_model 512,
+    d_state 64, headdim 32, tied embeddings, float32; vocab 4,099 as the
+    training CLI sets it) trained by ``run_train_loop`` from seeded weights
+    with AdamW at the CLI's defaults (seq 256, global batch 8, lr 3e-4, 200
+    steps, a compressed checkpoint every 50), fed by the CLI's own feed,
+    ``Prefetcher(trajectory_batcher(lake, device="cuda"))``, whose batcher
+    reads with the tokenizer's box, so each shard read decodes and refines
+    on the card (kernels 1 and 2 must launch). The
+    first step's loss and every gradient leaf are held against the same
+    step on the CPU (see :func:`train_path`); the last logged loss must be
+    below the first; the last checkpoint, decoded on the host, must equal
+    the card's parameters and optimizer state bit for bit; a second run to
+    250 steps must resume at 200; a run with ``fail_at_step`` must raise
+    and a rerun resume from its last checkpoint. Printed: steps/s,
+    tokens/s, one step's device split, the checkpoint's ratio and write
+    seconds, the feed's stalls, and a step at (32, 512);
+    (b) qwen3-8b at its published widths, 2 of its 36 layers, bf16 compute
+    over float32 parameters, ``attn_impl="ref"``: AdamW for 5 steps on one
+    repeated (2, 4096) synthetic batch, accumulated over 2 microbatches of
+    one (the config's ``grad_accum`` of 16, clamped to the batch); the loss
+    must fall, the first loss lie within phase 4's bf16 noise of a
+    float32-compute loss, and the first step's gradient leaves within 2^-4
+    (normwise) of float32-compute ones (see :func:`dense_train`); peak
+    memory beside its reckoning;
+    (c) a backward through ``attn_impl="flash"`` must raise on the card.
+
+Every line is one JSON object (the training loop's own log lines go to
+standard error). The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
 table, printed just before the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository's sources beside it, the script exits non-zero and prints no
@@ -197,6 +230,15 @@ FAMILY_RUNS = (("mamba2-130m", "ref", None), ("zamba2-1.2b", "flash", None),
                ("arctic-480b", "flash", 2))
 FAMILY_FRAMES = 2048            # whisper: 4096 positions' audio after its 2x downsample
 FAMILY_DECODE_SEQ = 256
+# Training (phase 4d): spatial-lm at the training CLI's defaults
+# (src/repro/launch/train.py: seq 256, global batch 8, lr 3e-4, 200 steps,
+# a compressed checkpoint every 50), then a resume to 250 and a fault drill
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS, TRAIN_CKPT_EVERY = 256, 8, 3e-4, 200, 50
+TRAIN_RESUME_TO = 250
+TRAIN_FAIL = (255, 260)                          # injected failure at, then run to
+TRAIN_WIDE = (32, 512, 5)                        # batch, seq, timed steps of the wide timing
+# qwen3-8b trained at published widths: 2 of its 36 layers, train_4k's sequence
+DENSE_TRAIN = (2, 2, 4096, 5)                    # layers, batch, seq, steps
 DEVICE = "cuda"
 
 
@@ -2076,6 +2118,314 @@ def families_path(args, lake: Path, bbox, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- training
+def _bits_equal(a, b) -> bool:
+    """Same dtype, shape and bit pattern (NaN-safe)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    iv = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.cpu().view(iv), b.cpu().view(iv))
+
+
+def _counts(counters) -> dict:
+    return {c.kname: c.launches for c in counters}
+
+
+def train_path(args, lake: Path, work: Path, counters) -> dict:
+    """Phase 4d: training on the card (see the module docstring).
+
+    Tolerance of the first step against the CPU port (float32 both, TF32
+    off, the same weights and batch): the loss within 1e-4 of itself, and
+    each gradient leaf within 1e-4 of its own largest magnitude. Both take
+    the same float32 sums in other orders. A product of length K rounds by
+    about sqrt(K) * 2^-24 of its scale (K <= 2048 here: 2.7e-6); 12 layers
+    carry about six products in series forward and twelve backward, so
+    sqrt(216) * 2.7e-6 = 4e-5 reaches a gradient, and 1e-4 leaves a margin
+    of 2.5 (the JAX and PyTorch CPU paths of the same step differ by at
+    most 1e-5 a leaf).
+    """
+    import contextlib
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.launch.train import trajectory_batcher
+    from repro_torch.models import build_model, flatten_with_paths, params_to
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_loop import make_train_step, run_train_loop, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for c in counters:
+        c.launches = 0
+    t_phase = time.perf_counter()
+    # the CLI's own feed (its batcher reads with the tokenizer's box, so each
+    # shard read refines on the card: kernel 2)
+    batcher = trajectory_batcher(lake, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                 seed=args.seed, device=DEVICE)
+    feed = Prefetcher(batcher)
+    base = get_config("spatial-lm")
+    cfg = dataclasses.replace(base, vocab=max(base.vocab, batcher.tok.vocab))
+    model = build_model(cfg)
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=min(100, TRAIN_STEPS // 10 + 1),
+                   total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    first = next(feed)
+    first_batch_s = time.perf_counter() - t0
+    require(first["tokens"].shape == (1, TRAIN_BATCH, TRAIN_SEQ),
+            f"feed batch of shape {first['tokens'].shape}")
+
+    # the first step's loss and gradients on the card against the CPU port
+    params = model.init(args.seed, device=DEVICE)
+    n_params = sum(t.numel() for t in tensors(params))
+    micro = {"tokens": first["tokens"][0]}
+    grad_fn = value_and_grad(model.loss)
+    (loss_card, _), g_card = grad_fn(params, micro)
+    (loss_cpu, _), g_cpu = grad_fn(params_to(params, "cpu"), micro)
+    g_card, g_cpu = dict(flatten_with_paths(g_card)), dict(flatten_with_paths(g_cpu))
+    worst = max((float((g_card[k].cpu() - g_cpu[k]).abs().max())
+                 / max(float(g_cpu[k].abs().max()), 1e-30), k) for k in g_cpu)
+    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    first_step = {"loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
+                  "loss_rel": loss_rel, "grad_leaves": len(g_cpu),
+                  "grad_worst_rel": worst[0], "grad_worst_leaf": worst[1],
+                  "tolerance": "1e-4 of the loss; 1e-4 of each leaf's max |cpu grad|"}
+    emit({"train_first_step": first_step})
+    require(loss_rel <= 1e-4, f"first loss on the card {float(loss_card)} vs CPU {float(loss_cpu)}")
+    require(worst[0] <= 1e-4, f"gradient {worst[1]} differs from the CPU's by {worst[0]}")
+    del params, g_card, g_cpu
+
+    ckdir = work / "ckpt"
+    mgr = CheckpointManager(ckdir, compress=True, keep=3)
+
+    def train(steps, data, **kw):
+        with contextlib.redirect_stdout(sys.stderr):     # the loop's log lines
+            t0 = time.perf_counter()
+            state, hist = run_train_loop(
+                cfg, oc, data, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps,
+                checkpoint_mgr=mgr, checkpoint_every=TRAIN_CKPT_EVERY, log_every=10,
+                rng_seed=args.seed, device=DEVICE, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mgr.wait()
+        return state, hist, wall, time.perf_counter() - t0
+
+    state, hist, wall, wall_saved = train(TRAIN_STEPS, itertools.chain([first], feed))
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    run = {"steps": TRAIN_STEPS, "wall_s": wall, "wall_with_last_write_s": wall_saved,
+           "steps_per_s": TRAIN_STEPS / wall, "tokens_per_s": tokens / wall,
+           "first_loss": hist[0]["loss"], "last_loss": hist[-1]["loss"],
+           "first_loss_vs_check": abs(hist[0]["loss"] - float(loss_card)),
+           "feed_stalls": feed.stalls, "first_batch_s": first_batch_s}
+    require(hist[0]["step"] == 0 and hist[-1]["step"] == TRAIN_STEPS - 1, "bad loop history")
+    require(all(np.isfinite(h["loss"]) for h in hist), "a logged loss is not finite")
+    require(hist[-1]["loss"] < hist[0]["loss"],
+            f"the loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss']}")
+    require(run["first_loss_vs_check"] <= 1e-5 * abs(float(loss_card)),
+            "the loop's first loss is not the checked step's")
+    # the last checkpoint, decoded on the host, against the card's state
+    saves = [st.write_s for st in mgr.history]
+    ratio = mgr.last_stats.ratio
+    step, host = mgr.load_host()
+    card = {"params": state.params, "opt_state": state.opt_state}
+    fh, fc = dict(flatten_with_paths(host)), dict(flatten_with_paths(card))
+    require(step == TRAIN_STEPS and set(fh) == set(fc), f"checkpoint step {step}, keys differ")
+    bad = [k for k in fc if not _bits_equal(fh[k], fc[k])]
+    require(not bad, f"checkpoint leaves differ from the card's state: {bad[:5]}")
+    run["checkpoint"] = {"saves": len(saves), "write_s": saves,
+                         "write_s_mean": sum(saves) / len(saves), "ratio": ratio,
+                         "raw_bytes": mgr.last_stats.raw_bytes,
+                         "stored_bytes": mgr.last_stats.stored_bytes,
+                         "leaves": len(fc), "bit_equal": True}
+    del state, host, card, fh, fc
+
+    # resume to 250, then a run that fails and a rerun from its last checkpoint
+    _, hist2, wall2, _ = train(TRAIN_RESUME_TO, feed)
+    require(hist2[0]["step"] == TRAIN_STEPS, f"resumed at step {hist2[0]['step']}")
+    fail_at, fail_to = TRAIN_FAIL
+    try:
+        train(fail_to, feed, fail_at_step=fail_at)
+    except RuntimeError as e:
+        require(f"injected failure at step {fail_at}" in str(e), f"unexpected error {e}")
+    else:
+        raise Failure("the run with fail_at_step did not raise")
+    _, hist4, _, _ = train(fail_to, feed)
+    require(hist4[0]["step"] == TRAIN_RESUME_TO and mgr.latest_step() == fail_to,
+            f"the rerun resumed at {hist4[0]['step']}, latest checkpoint {mgr.latest_step()}")
+    run["resume"] = {"resumed_at": hist2[0]["step"], "steps": TRAIN_RESUME_TO - TRAIN_STEPS,
+                     "wall_s": wall2, "fail_at": fail_at,
+                     "rerun_resumed_at": hist4[0]["step"]}
+    # the training path ends here; nothing below reads from its feed (its
+    # producer runs at most a queue's depth ahead, inside the shard it holds)
+    run["launches"] = path = _counts(counters)
+    run["feed_stalls"] = feed.stalls
+    for name in FILE_KERNELS[:2]:
+        require(path[name] > 0, f"kernel {name} was not launched by the training feed")
+
+    # one step's device split, and the wide shape's step time (a batcher of
+    # its own, whose shard read is counted apart as measurement_launches)
+    params = model.init(args.seed + 1, device=DEVICE)
+    opt = opt_init(oc, params)
+    step_fn, _ = make_train_step(cfg, oc, TRAIN_BATCH, TRAIN_SEQ, device=DEVICE)
+    b = first
+    step_fn(params, opt, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step_fn(params, opt, b)
+    torch.cuda.synchronize()
+    run["step_ms"] = (time.perf_counter() - t0) / 10 * 1e3    # no feed, no checkpoint
+    run["step_tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / run["step_ms"] * 1e3
+    run["step_split"] = device_split(lambda: step_fn(params, opt, b))
+    wb, ws, wn = TRAIN_WIDE
+    wide_fn, _ = make_train_step(cfg, oc, wb, ws, device=DEVICE)
+    wide_it = iter(trajectory_batcher(lake, seq=ws, global_batch=wb, seed=args.seed + 1,
+                                      device=DEVICE))
+    wide = [next(wide_it) for _ in range(wn + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    wide_fn(params, opt, wide[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wbatch in wide[1:]:
+        wide_fn(params, opt, wbatch)
+    torch.cuda.synchronize()
+    wide_s = (time.perf_counter() - t0) / wn
+    run["wide"] = {"batch": wb, "seq": ws, "steps": wn, "step_ms": wide_s * 1e3,
+                   "tokens_per_s": wb * ws / wide_s,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    after = _counts(counters)
+    run["measurement_launches"] = {k: after[k] - path[k] for k in path}
+    del params, opt, step_fn, wide_fn, wide
+    out = {"config": "spatial-lm", "vocab": cfg.vocab, "n_params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "spatial_lm": run}
+    emit({"train_spatial_lm": run})
+    torch.cuda.empty_cache()
+
+    out["dense"] = dense_train(args)
+    out["flash_under_grad"] = flash_under_grad()
+    # (b) and (c) are training paths too: what they launch joins (a)'s count
+    end = _counts(counters)
+    require(all(end[k] == after[k] for k in (*LM_KERNELS, F32_FLASH)),
+            "(b) or (c) launched the flash kernel")
+    out["launches"] = {k: path[k] + end[k] - after[k] for k in path}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def dense_train(args) -> dict:
+    """Phase 4d (b): qwen3-8b at its published widths, 2 of its 36 layers,
+    bf16 compute over float32 parameters, AdamW on one repeated batch.
+
+    The first loss is held to a float32-compute loss on the same batch and
+    weights by phase 4's bf16 noise: each token's loss is logsumexp(z) -
+    z_gold, and both terms move by at most max |z_bf16 - z_f32|, so the mean
+    moves by at most twice the measured largest logit difference.
+
+    The first step's gradients (its first microbatch) are held, leaf by
+    leaf, to the float32-compute gradients on the same weights and tokens:
+    ||g_bf16 - g_f32|| / ||g_f32|| <= 2^-4. Each bf16 rounding moves a value
+    by at most u = 2^-8 of itself; a leaf's gradient passes through about
+    R = 64 roundings in series (some 14 per layer forward and as many
+    backward, for 2 layers, plus the head and the loss); independent
+    roundings add in quadrature, so a leaf differs by about sqrt(R) * u =
+    2^-5 of its norm, and the bound allows twice that. A gradient that the
+    bf16 path drops or breaks differs by about its whole norm."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_token_iter
+    from repro_torch.models import build_model, flatten_with_paths
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+
+    layers, b, s, steps = DENSE_TRAIN
+    cfg = dataclasses.replace(get_config(LM_CONFIG), n_layers=layers, attn_impl="ref")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(args.seed, device=DEVICE)
+    pbytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    step_fn, bstruct = make_train_step(cfg, oc, b, s, device=DEVICE)
+    accum = bstruct["tokens"][0][0]     # the config's accumulation, clamped to the batch
+    # params, m, v, float32 grads (and their running sum when accumulating);
+    # a microbatch's bf16 logits and their gradient, the float32 exp the
+    # loss keeps and its gradient
+    reckoned = (3 + (2 if accum > 1 else 1)) * pbytes + b * s * cfg.vocab // accum * 12
+    toks = next(synthetic_token_iter(cfg.vocab, seq_len=s, global_batch=b,
+                                     seed=args.seed))["tokens"][0]
+    with torch.no_grad():
+        z16, _, _ = model.forward(params, {"tokens": toks})
+        f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        z32, _, _ = f32.forward(params, {"tokens": toks})
+        noise = float((z16.float() - z32).abs().max())
+        del z16, z32
+        loss32 = float(f32.loss(params, {"tokens": toks})[0])
+    micro = {"tokens": toks[: b // accum]}          # the step's first microbatch
+    _, g16 = value_and_grad(model.loss)(params, micro)
+    _, g32 = value_and_grad(f32.loss)(params, micro)
+    grad_rel = {k: float((g.float() - w).norm() / w.norm())
+                for (k, g), (_, w) in zip(flatten_with_paths(g16), flatten_with_paths(g32))}
+    del g16, g32
+    opt = opt_init(oc, params, cfg.opt_state_dtype)
+    batch = {"tokens": toks.reshape(bstruct["tokens"][0])}
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    out = {"config": LM_CONFIG, "n_layers": layers, "batch": b, "seq": s,
+           "grad_accum": accum, "param_gb": pbytes / 1e9, "losses": losses, "step_s": step_s,
+           "float32_first_loss": loss32, "logits_noise_max_abs": noise,
+           "first_loss_tolerance": 2 * noise,
+           "grad_rel_norm": grad_rel, "grad_rel_norm_max": max(grad_rel.values()),
+           "grad_tolerance": 2 ** -4,
+           "reckoned_peak_gb": reckoned / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"train_dense": out})
+    require(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    require(losses[-1] < losses[0], f"the qwen3-8b loss did not fall: {losses}")
+    require(abs(losses[0] - loss32) <= 2 * noise,
+            f"first bf16 loss {losses[0]} vs float32 {loss32}, beyond 2 x {noise}")
+    bad = {k: r for k, r in grad_rel.items() if not r <= 2 ** -4}
+    require(not bad, f"bf16 gradients differ from the float32 ones beyond 2^-4: {bad}")
+    del params, opt, step_fn, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_under_grad() -> dict:
+    """Phase 4d (c): a backward through ``attn_impl="flash"`` raises on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = dataclasses.replace(get_config(LM_CONFIG).reduced(), attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(0, device=DEVICE)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 128)).astype(np.int32)
+    try:
+        value_and_grad(model.loss)(params, {"tokens": toks})
+    except RuntimeError as e:
+        require("no backward" in str(e), f"unexpected error {e}")
+        return {"raised": True, "message": str(e)}
+    finally:
+        torch.cuda.synchronize()
+    raise Failure("a backward through the flash kernel did not raise on the card")
+
+
 # ---------------------------------------------------------------- entry
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2124,7 +2474,10 @@ def main() -> int:
                "families": {"shape": "train_4k", "global_batch": [LM_FULL_BATCH, LM_BATCH],
                             **{name: {"n_layers": [get_config(name).n_layers, depth]}
                                for name, _, depth in FAMILY_RUNS if depth},
-                            "arctic-480b_decode_check_positions": [FAMILY_DECODE_SEQ, 64]}}
+                            "arctic-480b_decode_check_positions": [FAMILY_DECODE_SEQ, 64]},
+               "train": {"qwen3-8b": {"n_layers": [get_config(LM_CONFIG).n_layers,
+                                                   DENSE_TRAIN[0]],
+                                      "global_batch": [LM_FULL_BATCH, DENSE_TRAIN[1]]}}}
     if args.n_traj != FULL_N_TRAJ:
         reduced["n_traj"] = [FULL_N_TRAJ, args.n_traj]
     emit({"reduced": reduced})
@@ -2171,6 +2524,11 @@ def main() -> int:
         fam = families_path(args, lake, main["_boxes"]["refine_10pct"], counters)
         fam["wall_s"] = time.perf_counter() - t0
         emit({"families_path": fam})
+        # phase 4d trains from the same lake
+        trn = train_path(args, lake, Path(tmp), counters)
+        emit({"train_path": {k: v for k, v in trn.items() if k in ("config", "vocab",
+                                                                    "n_params", "launches",
+                                                                    "wall_s")}})
     launches = {**{n: main["launches"][n] for n in FILE_KERNELS},
                 **{n: codec_launches[n] for n in CODEC_KERNELS},
                 **{n: lm["launches"][n] + fam["launches"][n] for n in LM_KERNELS},
@@ -2179,6 +2537,7 @@ def main() -> int:
     serve_shape = serve["kernel_times"]
     launches_feed = {n: feed["launches"][n] for n in launches}
     launches_4c = {n: fam["launches"][n] for n in launches}
+    launches_train = {n: trn["launches"][n] for n in launches}
     for row in table:
         emit({"kernel": row["name"], "mismatches": row["mismatches"],
               "kernel_ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
@@ -2186,6 +2545,7 @@ def main() -> int:
               "launches_serve": launches_serve[row["name"]],
               "launches_feed": launches_feed[row["name"]],
               "launches_families": launches_4c[row["name"]],
+              "launches_train": launches_train[row["name"]],
               "shape": row["shape"], "bytes": row["bytes"],
               **({"serve_shape": serve_shape[row["name"]]}
                  if row["name"] in serve_shape else {})})
@@ -2202,6 +2562,7 @@ def main() -> int:
                        "launches_serve": launches_serve[r["name"]],
                        "launches_feed": launches_feed[r["name"]],
                        "launches_families": launches_4c[r["name"]],
+                       "launches_train": launches_train[r["name"]],
                        **({"serve_shape": {k: serve_shape[r["name"]][k]
                                            for k in ("ms", "device_ms", "bound_ms")}}
                           if r["name"] in serve_shape else {})} for r in table]})

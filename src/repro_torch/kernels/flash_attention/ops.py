@@ -36,7 +36,16 @@ def _checked(fn, q, k, v, causal, sm_scale):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
               sm_scale: float | None = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's dtype."""
+    """q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's dtype.
+
+    Forward only, on both devices: the kernel has no backward (nor has the
+    reference's, whose ``jax.grad`` fails), so a call that autograd would
+    have to differentiate raises ``RuntimeError`` rather than return an
+    output with no gradient on the card and one on the CPU."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash attention op has no backward pass; train with "
+            "attn_impl='ref' or 'blocked', or call it under torch.no_grad()")
     if q.device.type == "cuda":
         fn = kernel.flash_attention
     elif q.device.type == "cpu":
@@ -49,5 +58,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
     """:func:`attention` with the plain version on any device: what the
-    kernel is held against on the card."""
+    kernel is held against on the card. Differentiable."""
     return _checked(ref.attention_ref, q, k, v, causal, sm_scale)

@@ -5,7 +5,8 @@ Logits are taken in float32 (bf16 inputs are exact in float32), masked with
 -1e30 on the decode-aligned causal diagonal ``col <= row + (Sk - Sq)``, and
 the probabilities are cast to ``v``'s dtype before the product with ``v``.
 Runs on any device; the CPU tests use it and ``chip_smoke.py`` holds the
-CUDA kernel against it on the card.
+CUDA kernel against it on the card. It is differentiable: where autograd
+needs its gradient, the softmax runs out of place.
 """
 
 from __future__ import annotations
@@ -32,7 +33,12 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
         logits = logits.masked_fill_(~(cols <= rows + (sk - sq)), NEG_INF)
-    # in place: at long sequences the (Sq, Sk) float32 logits are the peak
-    p = logits.sub_(logits.amax(dim=-1, keepdim=True)).exp_()
-    p = p.div_(p.sum(dim=-1, keepdim=True))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the same steps out of place, so autograd keeps what it saved
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p = p / p.sum(dim=-1, keepdim=True)
+    else:
+        # in place: at long sequences the (Sq, Sk) float32 logits are the peak
+        p = logits.sub_(logits.amax(dim=-1, keepdim=True)).exp_()
+        p = p.div_(p.sum(dim=-1, keepdim=True))
     return torch.matmul(p.to(v.dtype), v).to(q.dtype)

@@ -120,7 +120,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None,
         logz = torch.logsumexp(logits32, dim=-1)
         gold = torch.gather(logits32, -1, safe)[..., 0]
     else:
-        m = logits.amax(dim=-1)
+        m = logits.amax(dim=-1).detach()   # the reference's stop_gradient
         shifted = logits - m[..., None]
         sumexp = torch.exp(shifted.float()).sum(dim=-1)
         logz = torch.log(sumexp) + m.float()

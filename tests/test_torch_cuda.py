@@ -20,6 +20,7 @@ from repro_torch.kernels import fp_delta as tfd
 from repro_torch.kernels import minmax as tmm
 from repro_torch.kernels.fp_delta import kernel as fkernel, ref as fref
 from repro_torch.kernels.minmax import kernel as mkernel, ref as mref
+from repro_torch.models import flatten_with_paths
 
 pytestmark = pytest.mark.cuda
 
@@ -863,3 +864,116 @@ def test_spatial_lm_server_on_card_matches_cpu(card):
             srv.submit(mat[i][mat[i] > 0][:16], max_new_tokens=12, rid=i)
         out.append({r.rid: r.out_tokens for r in srv.run()})
     assert out[0] == out[1]
+
+
+def _flat_tree(tree):
+    """``{path: leaf}`` of a nested dict, in the port's one leaf order."""
+    return dict(flatten_with_paths(tree))
+
+
+@pytest.mark.parametrize("arch", ["spatial-lm", "internlm2-1.8b"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One reduced train step (AdamW, grad accumulation over 2 microbatches)
+    on the card against the same step on the CPU: gradients within 1e-4 of
+    each leaf's largest magnitude (float32 sum order; TF32 off), the loss
+    within 1e-5, both moments within 1e-4 of their leaf's largest magnitude,
+    and each parameter within what the two sides' moments imply (Adam's
+    ratio g / (|g| + eps) is steep near a zero gradient)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_to
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), grad_accum=2)
+    oc = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (2, 2, 64)).astype(np.int32)
+    cpu = build_model(cfg).init(0, device="cpu")
+    gpu = params_to(cpu, card)
+    grad_fn = value_and_grad(build_model(cfg).loss)
+    (lg, _), gg = grad_fn(gpu, {"tokens": toks[0]})
+    (lc, _), gc = grad_fn(cpu, {"tokens": toks[0]})
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    gg, gc = _flat_tree(gg), _flat_tree(gc)
+    for k in gc:
+        assert gg[k].device.type == "cuda"
+        assert float((gg[k].cpu() - gc[k]).abs().max()) <= 1e-4 * float(gc[k].abs().max()), k
+    out = {}
+    for name, params in (("gpu", gpu), ("cpu", cpu)):
+        step, _ = make_train_step(cfg, oc, 4, 64, device=params["embed"].device)
+        state = opt_init(oc, params)
+        p, s, m = step(params, state, {"tokens": toks})
+        out[name] = (_flat_tree(p), _flat_tree(s["m"]), _flat_tree(s["v"]), float(m["loss"]))
+    (pg, mg, vg, lossg), (pc, mc, vc, lossc) = out["gpu"], out["cpu"]
+    assert abs(lossg - lossc) <= 1e-5 * abs(lossc)
+
+    def ratio(m, v):
+        m, v = m.double(), v.double()
+        return (m / (1 - oc.b1)) / (torch.sqrt(v / (1 - oc.b2)) + oc.eps)
+
+    for k in pc:
+        for a, b in ((mg[k], mc[k]), (vg[k], vc[k])):
+            assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()), k
+        dr = (ratio(mg[k].cpu(), vg[k].cpu()) - ratio(mc[k], vc[k])).abs()
+        bound = oc.lr * (dr + 1e-4) + 2.0 ** -22 * pc[k].double().abs()
+        assert bool(((pg[k].cpu().double() - pc[k].double()).abs() <= bound).all()), k
+
+
+def test_flash_raises_under_grad_on_card(card):
+    """A backward through ``attn_impl="flash"`` raises on the card, before
+    any launch, as on the CPU; without a gradient the kernel runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel, ops
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(0, device=card)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 128)).astype(np.int32)
+    n0 = kernel.flash_attention_f32.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        value_and_grad(model.loss)(params, {"tokens": toks})
+    q = torch.randn(1, 2, 128, 32, device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.attention(q, q.detach(), q.detach())
+    assert kernel.flash_attention_f32.launches == n0
+    model.loss(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert kernel.flash_attention_f32.launches == n0 + cfg.n_layers
+
+
+def test_checkpoint_from_card_restores_bit_equal(card, tmp_path):
+    """A checkpoint written from card tensors (float32, bf16, float8, int32
+    and the step scalar, compressed and raw leaves) restores on the card
+    bit for bit."""
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    g = torch.Generator(device=card)
+    g.manual_seed(0)
+    params = {"w": torch.randn(64, 48, device=card, generator=g),
+              "bf": torch.randn(33, 67, device=card, generator=g).to(torch.bfloat16),
+              "f8": torch.randn(2000, device=card, generator=g).to(torch.float8_e4m3fn),
+              "small": torch.randn(7, device=card, generator=g),
+              "ids": torch.randint(0, 9, (4, 512), device=card, dtype=torch.int32,
+                                   generator=g)}
+    opt = {"m": {"w": torch.randn(64, 48, device=card, generator=g)},
+           "step": torch.tensor(17, dtype=torch.int32, device=card)}
+    want = {k: v.clone() for k, v in _flat_tree({"params": params, "opt_state": opt}).items()}
+    mgr = CheckpointManager(tmp_path, compress=True, async_save=True)
+    mgr.save(17, params, opt)
+    params["w"].add_(1.0)          # the snapshot is taken before save returns
+    mgr.wait()
+    step, p2, o2 = CheckpointManager(tmp_path).restore_latest(device=card)
+    assert step == 17
+    got = _flat_tree({"params": p2, "opt_state": o2})
+    assert set(got) == set(want)
+    iv = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    for k in want:
+        assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype, k
+        a, b = got[k].view(iv[got[k].element_size()]), want[k].view(iv[want[k].element_size()])
+        assert torch.equal(a, b), k

@@ -1,4 +1,4 @@
-"""The port stands alone: no JAX and nothing of the ``repro`` package.
+"""The port stands alone: no JAX, no ``ml_dtypes`` and nothing of the ``repro`` package.
 
 A subprocess blocks both imports (``sys.modules[...] = None`` makes any
 import of them raise), then imports the port, writes a file and reads it
@@ -6,7 +6,9 @@ back on the CPU, round-trips an array through the miniblock codec, writes a
 sharded dataset and scans it, answers a query-server wave and draws one
 data-feed batch over it, builds a reduced dense LM on the CPU, runs its
 forward and serves two requests, runs the forward and loss of every config's
-reduced variant (all six families), and checks that every entry point's
+reduced variant (all six families), trains a reduced spatial-lm from the
+lake with a compressed checkpoint and resumes from it (``ml_dtypes`` blocked
+too: the port must run where it is not installed), and checks that every entry point's
 default device asks for a card.
 """
 
@@ -24,6 +26,7 @@ _CHILD = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
 import numpy as np, torch
 import repro_torch
 from repro_torch.core.columnar import from_ragged
@@ -140,7 +143,38 @@ if not torch.cuda.is_available():
         assert "no CUDA device" in str(e)
     else:
         raise AssertionError("model init on the default device ran without a card")
-assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+
+# train a reduced spatial-lm from the lake, with a compressed checkpoint
+# holding float32, int32 and bf16 leaves, and resume from it
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.train_loop import run_train_loop
+
+lm = dataclasses.replace(get_config("spatial-lm").reduced(), vocab=tok.vocab,
+                         opt_state_dtype="bfloat16")
+feed = iter(TrajectoryBatcher([lake], tok, seq_len=64, global_batch=2, device="cpu"))
+mgr = CheckpointManager(lake + "-ckpt", async_save=True, keep=2)
+state, hist = run_train_loop(lm, OptConfig(lr=1e-3, warmup_steps=1, total_steps=4), feed,
+                             global_batch=2, seq=64, steps=3, checkpoint_mgr=mgr,
+                             checkpoint_every=2, log_every=1, device="cpu")
+mgr.wait()
+assert [h["step"] for h in hist] == [0, 1, 2] and mgr.latest_step() == 3
+step, host = mgr.load_host()
+assert host["opt_state"]["m"]["embed"].dtype == torch.bfloat16
+assert torch.equal(host["params"]["embed"], state.params["embed"])
+_, hist2 = run_train_loop(lm, OptConfig(lr=1e-3, warmup_steps=1, total_steps=4), feed,
+                          global_batch=2, seq=64, steps=4, checkpoint_mgr=mgr,
+                          checkpoint_every=2, log_every=1, device="cpu")
+assert hist2[0]["step"] == 3
+if not torch.cuda.is_available():
+    try:
+        mgr.restore_latest()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e)
+    else:
+        raise AssertionError("restore on the default device ran without a card")
+assert not {"jax", "ml_dtypes"} & {m.split(".")[0] for m in sys.modules
+                                   if sys.modules[m] is not None}
 print("ISOLATED-OK", dev[2].records_returned)
 """
 
@@ -169,4 +203,5 @@ def test_no_import_of_jax_or_repro(root):
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), (f, name)
+                assert name.split(".")[0] not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                    (f, name)

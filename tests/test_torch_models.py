@@ -30,7 +30,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
 from repro_torch.configs import ARCHS as TARCHS, get_config  # noqa: E402
-from repro_torch.models import build_model, params_from_jax  # noqa: E402
+from repro_torch.models import build_model, flatten_with_paths, params_from_jax  # noqa: E402
 
 TOL = 1e-4
 ARCHS = {name: {} for name in TARCHS}
@@ -88,10 +88,9 @@ def _j(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
-def _flat(tree, pre=""):
-    if not isinstance(tree, dict):
-        return {pre: tree}
-    return {k: v for n, sub in tree.items() for k, v in _flat(sub, f"{pre}/{n}").items()}
+def _flat(tree):
+    """``{path: leaf}`` of a nested dict, in the port's one leaf order."""
+    return dict(flatten_with_paths(tree))
 
 
 def _caches_close(tc, jc):
@@ -136,7 +135,7 @@ def test_every_config_builds(arch):
         assert tuple(v.shape) == theirs[k].shape and v.dtype == dtypes[theirs[k].dtype.name], k
     carried = _flat(params_from_jax({"t": {k: v for k, v in theirs.items()}}, device="cpu"))
     for k, v in theirs.items():
-        got = carried["/t/" + k]
+        got = carried["t/" + k]
         assert got.dtype == mine[k].dtype, k
         bits = np.int16 if v.dtype.name == "bfloat16" else np.int32
         assert np.array_equal(got.view({np.int16: torch.int16, np.int32: torch.int32}[bits])
