@@ -166,6 +166,30 @@ timings after (a)'s drill read a batcher of their own, counted apart as
     memory beside its reckoning;
     (c) a backward through ``attn_impl="flash"`` must raise on the card.
 
+Then phase 4e, the mesh, every count set to 0 just before each of its
+paths (``launches_mesh`` on the kernel lines):
+
+4e. (a) the training CLI for spatial-lm at its defaults over the lake, 20
+    steps with a checkpoint at 10, started plainly and under ``torchrun
+    --nproc-per-node 1`` with ``--mesh-data 1 --mesh-model 1`` (a one-rank
+    NCCL group; each run a child process, ``--train-child``, which reports
+    its kernel counts): the mesh run's logged losses within 2e-4 of the
+    plain run's, kernels 1 and 2 launched on the mesh; then in this process
+    the same step on the one-rank mesh beside the plain step, timed in turns
+    (the mesh's DTensor dispatch is what the difference measures);
+    (b) qwen3-8b at its published widths, 2 of its 36 layers, bf16 compute,
+    ``attn_impl="flash"``: ``forward`` on (2, 4096) and the prefill step on
+    the one-rank mesh (parameters placed as views of the same storage), the
+    logits against the unsharded call's and the next tokens equal; kernel 6
+    launches once per layer in each, inside ``local_map``;
+    (c) the dry run (``repro_torch.launch.dryrun``) of qwen3-8b ``train_4k``
+    (calibrated from one and two layers) and ``decode_32k`` (every layer) on
+    a fake group of 256 ranks, (16, 16): their roofline lines. It runs on
+    the CPU in a child process (``--dryrun-child``) started before phase 4c;
+    (d) the roofline share of phase 4d's two measured steps: their FLOPs
+    and bytes counted on one device on fake tensors, the bound at the card's
+    peaks over the measured step time.
+
 Every line is one JSON object (the training loop's own log lines go to
 standard error). The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
@@ -239,6 +263,13 @@ TRAIN_FAIL = (255, 260)                          # injected failure at, then run
 TRAIN_WIDE = (32, 512, 5)                        # batch, seq, timed steps of the wide timing
 # qwen3-8b trained at published widths: 2 of its 36 layers, train_4k's sequence
 DENSE_TRAIN = (2, 2, 4096, 5)                    # layers, batch, seq, steps
+# The mesh (phase 4e): the training CLI for 20 steps, a checkpoint at 10, on a
+# one-rank NCCL mesh; qwen3-8b at DENSE_TRAIN's cut sharded; the dry run of two
+# qwen3-8b cells on a fake group of 256 ranks, in a child process on the CPU
+MESH_STEPS, MESH_CKPT_EVERY, MESH_TIMED_STEPS = 20, 10, 10
+MESH_CHILD_TIMEOUT = 300
+DRYRUN_CELLS = (("train_4k", "calibrated"), ("decode_32k", "direct"))
+DRYRUN_TIMEOUT = 900
 DEVICE = "cuda"
 
 
@@ -2426,6 +2457,299 @@ def flash_under_grad() -> dict:
     raise Failure("a backward through the flash kernel did not raise on the card")
 
 
+# ---------------------------------------------------------------- the mesh
+def dryrun_child() -> int:
+    """Phase 4e (c) and (d)'s counts, on the CPU in a process of its own
+    (``chip_smoke.py --dryrun-child``, started before phase 4c so that it
+    runs beside the card's phases): the dry run of qwen3-8b's
+    ``DRYRUN_CELLS`` on a fake group of 256 ranks, and the FLOPs and bytes
+    of phase 4d's two measured steps on one device, counted on fake
+    tensors. Its result is the line that starts with ``DRYRUN``."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.synthetic import PORTO_BBOX
+    from repro_torch.data.tokenizer import GeoTokenizer
+    from repro_torch.launch.dryrun import fake_group, one_device_counts, run_cell
+    from repro_torch.launch.mesh import production_shape
+
+    keep = ("chips", "counting", "compile_s", "sharding_fallbacks", "memory", "cost_raw",
+            "collectives", "roofline", "model_flops_global", "model_flops_per_chip",
+            "useful_flops_ratio")
+    out = {"cells": {}}
+    with fake_group(production_shape().size):
+        for shape, counting in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rec = run_cell(LM_CONFIG, shape, multi_pod=False, counting=counting)
+            out["cells"][shape] = {**{k: rec[k] for k in keep},
+                                   "wall_s": time.perf_counter() - t0}
+    vocab = GeoTokenizer(PORTO_BBOX, order=6).vocab        # the training CLI's
+    spatial = dataclasses.replace(get_config("spatial-lm"), vocab=vocab)
+    layers, b, s, _ = DENSE_TRAIN
+    dense = dataclasses.replace(get_config(LM_CONFIG), n_layers=layers, attn_impl="ref")
+    out["steps"] = {
+        "spatial_lm": {"dtype": spatial.dtype, **one_device_counts(
+            spatial, ShapeConfig("train_4d", TRAIN_SEQ, TRAIN_BATCH, "train"))},
+        "qwen3_8b_2_layers": {"dtype": dense.dtype, **one_device_counts(
+            dense, ShapeConfig("train_4d", s, b, "train"))}}
+    print("DRYRUN " + json.dumps(out), flush=True)
+    return 0
+
+
+def start_dryrun(work: Path):
+    """Start :func:`dryrun_child` on the CPU (no card: CUDA_VISIBLE_DEVICES
+    empty), its output into a file. Returns (process, log path)."""
+    import os
+
+    import atexit
+
+    log = work / "dryrun_child.log"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"))
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child"],
+                                stdout=fh, stderr=subprocess.STDOUT, env=env)
+
+    def stop():          # a failed phase before 4e leaves no process behind
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log
+
+
+def train_child(argv) -> int:
+    """``repro_torch.launch.train.main(argv)`` in a process of its own
+    (``chip_smoke.py --train-child ...``, plainly or under ``torchrun``),
+    then its kernel launch counts on a line of their own."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.fp_delta import kernel as fk
+    from repro_torch.kernels.minmax import kernel as mk
+    from repro_torch.launch import train
+
+    train.main(argv)
+    emit({"train_child": {"launches": {FILE_KERNELS[0]: fk.decode_stream.launches,
+                                       FILE_KERNELS[1]: mk.segminmax_refine.launches}}})
+    return 0
+
+
+def _run_train_child(argv, work: Path, name: str, torchrun: bool) -> dict:
+    """One training CLI run in a child process; its logged losses, the mesh
+    line, its launch counts and wall time."""
+    import os
+
+    cmd = [sys.executable]
+    if torchrun:
+        cmd += ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1"]
+    cmd += [str(ROOT / "chip_smoke.py"), "--train-child", *argv]
+    log = work / f"{name}.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        r = subprocess.run(cmd, stdout=fh, stderr=subprocess.STDOUT, timeout=MESH_CHILD_TIMEOUT,
+                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    require(r.returncode == 0, f"the {name} training run failed:\n{text[-3000:]}")
+    losses = {int(ln.split()[2]): float(ln.split()[3].split("=")[1])
+              for ln in text.splitlines() if ln.startswith("[train] step ")}
+    child = next(json.loads(ln)["train_child"] for ln in text.splitlines()
+                 if ln.startswith('{"train_child"'))
+    mesh = [ln for ln in text.splitlines() if ln.startswith("[train] mesh")]
+    return {"losses": losses, "launches": child["launches"], "wall_s": wall,
+            "mesh_line": mesh[0] if mesh else None}
+
+
+def _alternate_ms(fns: dict, steps: int) -> dict:
+    """Step ms of each function, timed in turns (a, b, b, a) of ``steps``
+    calls each, after two warm-up calls of each."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+        fn()
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fns[n]()
+        torch.cuda.synchronize()
+        times[n].append((time.perf_counter() - t0) / steps * 1e3)
+    return {n: sum(t) / len(t) for n, t in times.items()}
+
+
+def mesh_path(args, lake: Path, work: Path, counters, trn: dict, dry) -> dict:
+    """Phase 4e: the mesh (see the module docstring).
+
+    Tolerances. (a) The CLI's losses on the one-rank mesh against the plain
+    run's, each logged to 4 decimals: within 2e-4 (the printing's 5e-5 on
+    each side, plus float32 sum-order noise far below it; the same kernels
+    run on the same tensors, so equal prints are expected). (b) The sharded
+    bf16 logits against the unsharded call's: the same kernels on the same
+    tensors, so bit-equality is expected; held within 2^-8 of the largest
+    |logit| (one bf16 rounding), the number printed beside it; the prefill's
+    next tokens exactly equal."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import step_share
+    from repro_torch.launch.train import trajectory_batcher
+    from repro_torch.models import build_model, flatten_with_paths
+    from repro_torch.sharding.dtensor import full, mesh_scope
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_loop import (make_prefill_step, make_train_step, mesh_layout,
+                                              place)
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # (a) the training CLI on a one-rank NCCL mesh against the plain CLI
+    cli = ["--arch", "spatial-lm", "--data-dir", str(lake), "--steps", str(MESH_STEPS),
+           "--ckpt-every", str(MESH_CKPT_EVERY), "--device", DEVICE]
+    plain = _run_train_child(cli + ["--ckpt-dir", str(work / "cli_plain")], work,
+                             "cli_plain", torchrun=False)
+    sharded = _run_train_child(cli + ["--ckpt-dir", str(work / "cli_mesh"), "--mesh-data", "1",
+                                      "--mesh-model", "1"], work, "cli_mesh", torchrun=True)
+    require(sharded["mesh_line"] is not None and "backend nccl" in sharded["mesh_line"],
+            f"the torchrun run did not train on an NCCL mesh: {sharded['mesh_line']}")
+    require(plain["mesh_line"] is None, "the plain run made a mesh")
+    logged = [k for k in range(MESH_STEPS) if k % 10 == 0 or k == MESH_STEPS - 1]
+    require(sorted(sharded["losses"]) == sorted(plain["losses"]) == logged,
+            f"logged steps {sorted(sharded['losses'])} / {sorted(plain['losses'])}")
+    loss_diff = max(abs(sharded["losses"][k] - plain["losses"][k]) for k in plain["losses"])
+    require(loss_diff <= 2e-4, f"mesh losses {sharded['losses']} vs plain {plain['losses']}")
+    saves = [f"step_{k:08d}" for k in range(MESH_CKPT_EVERY, MESH_STEPS + 1, MESH_CKPT_EVERY)]
+    for d in ("cli_plain", "cli_mesh"):
+        require(sorted(p.name for p in (work / d).iterdir() if p.name.startswith("step_"))
+                == saves, f"{d}: checkpoints {saves} missing")
+    for name in FILE_KERNELS[:2]:
+        require(sharded["launches"][name] > 0, f"kernel {name} was not launched on the mesh")
+    out["cli"] = {"plain": plain, "mesh": sharded, "loss_max_abs_diff": loss_diff,
+                  "tolerance": "2e-4 on each logged loss (4 decimals printed)"}
+    emit({"mesh_cli": out["cli"]})
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        # (a) the step's time on the mesh beside the plain step, in turns,
+        # on one batch from the CLI's feed (its shard read counted apart)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        before = _counts(counters)
+        batcher = trajectory_batcher(lake, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                     seed=args.seed, device=DEVICE)
+        batch = next(iter(batcher))
+        base = get_config("spatial-lm")
+        cfg = dataclasses.replace(base, vocab=max(base.vocab, batcher.tok.vocab))
+        model = build_model(cfg)
+        oc = OptConfig(lr=TRAIN_LR, warmup_steps=min(100, TRAIN_STEPS // 10 + 1),
+                       total_steps=TRAIN_STEPS)
+        layout = mesh_layout(cfg, mesh, oc)
+        p1 = model.init(args.seed + 2, device=DEVICE)
+        o1 = opt_init(oc, p1)
+        p2 = place(model.init(args.seed + 2, device=DEVICE), mesh, layout.params)
+        o2 = place(opt_init(oc, p1), mesh, layout.opt_state)
+        step1, _ = make_train_step(cfg, oc, TRAIN_BATCH, TRAIN_SEQ, device=DEVICE)
+        step2, _ = make_train_step(cfg, oc, TRAIN_BATCH, TRAIN_SEQ, device=DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step2(p2, o2, batch)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ms = _alternate_ms({"plain": lambda: step1(p1, o1, batch),
+                            "mesh": lambda: step2(p2, o2, batch)}, MESH_TIMED_STEPS)
+        out["step"] = {"config": "spatial-lm", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                       "plain_step_ms": ms["plain"], "mesh_step_ms": ms["mesh"],
+                       "mesh_over_plain_ms": ms["mesh"] - ms["plain"],
+                       "mesh_first_step_ms": first_ms,
+                       "phase_4d_step_ms": trn["spatial_lm"]["step_ms"],
+                       "measurement_launches": {k: v - before[k]
+                                                for k, v in _counts(counters).items()}}
+        emit({"mesh_step": out["step"]})
+        del p1, o1, p2, o2, step1, step2, batcher
+        torch.cuda.empty_cache()
+
+        # (b) qwen3-8b, 2 of 36 layers, bf16, flash: the sharded forward and
+        # prefill against the unsharded calls on the same tensors
+        layers, b, s, _ = DENSE_TRAIN
+        qcfg = dataclasses.replace(get_config(LM_CONFIG), n_layers=layers, attn_impl="flash")
+        qmodel = build_model(qcfg)
+        params = qmodel.init(args.seed, device=DEVICE)
+        toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, qcfg.vocab, (b, s)).astype(np.int32))
+        prefill1, _, cache1 = make_prefill_step(qcfg, b, s, device=DEVICE)
+        prefill2, _, cache2 = make_prefill_step(qcfg, b, s, device=DEVICE, mesh=mesh)
+        with torch.no_grad():
+            z1 = qmodel.forward(params, {"tokens": toks})[0]
+            t1 = prefill1(params, {"tokens": toks}, cache1())[0]
+        pm = place(params, mesh, mesh_layout(qcfg, mesh).params)
+        shared = all(d.to_local().data_ptr() == t.data_ptr() for (_, d), (_, t)
+                     in zip(flatten_with_paths(pm), flatten_with_paths(params)))
+        require(shared, "placing on the one-rank mesh copied a parameter")
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad(), mesh_scope():
+            z2 = full(qmodel.forward(pm, {"tokens": toks})[0])
+        t2 = prefill2(pm, {"tokens": toks}, cache2())[0]
+        torch.cuda.synchronize()
+        path = _counts(counters)
+        diff = float((z2.float() - z1.float()).abs().max())
+        bound = 2.0 ** -8 * float(z1.float().abs().max())
+        sm90 = LM_KERNELS[0]
+        fwd_ms = {}
+        for name, fn in (("plain", lambda: qmodel.forward(params, {"tokens": toks})),
+                         ("mesh", lambda: qmodel.forward(pm, {"tokens": toks}))):
+            with torch.no_grad(), mesh_scope():
+                fwd_ms[name] = cuda_ms(fn, iters=3, warmup=1)
+        after = _counts(counters)
+        out["lm"] = {"config": LM_CONFIG, "n_layers": layers, "batch": b, "seq": s,
+                     "attn_impl": "flash", "dtype": qcfg.dtype, "storage_shared": shared,
+                     "logits_max_abs_diff": diff, "logits_bit_equal": bool(torch.equal(z1, z2)),
+                     "tolerance": bound, "prefill_tokens_equal": bool(torch.equal(t1, t2)),
+                     "launches": path, "forward_ms": fwd_ms,
+                     "measurement_launches": {k: after[k] - path[k] for k in path}}
+        emit({"mesh_lm": out["lm"]})
+        require(diff <= bound, f"sharded logits differ by {diff} (bound {bound})")
+        require(out["lm"]["prefill_tokens_equal"], "sharded prefill tokens differ")
+        require(path[sm90] == 2 * layers, f"kernel 6 launched {path[sm90]} times on the mesh")
+        del params, pm, z1, z2, qmodel
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the dry run's roofline lines, from the child started before 4c
+    proc, log = dry
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    text = log.read_text()
+    require(rc == 0, f"the dry run failed:\n{text[-3000:]}")
+    res = json.loads(next(ln for ln in text.splitlines() if ln.startswith("DRYRUN "))[7:])
+    out["dryrun"] = {**res["cells"], "waited_s": time.perf_counter() - t0}
+    for shape, rec in res["cells"].items():
+        emit({"roofline_line": {"config": LM_CONFIG, "shape": shape, "mesh": [16, 16],
+                                **rec["roofline"], "memory": rec["memory"],
+                                "useful_flops_ratio": rec["useful_flops_ratio"],
+                                "counting": rec["counting"], "wall_s": rec["wall_s"]}})
+        require(rec["roofline"]["bound_s"] > 0 and rec["memory"]["peak_hbm_bytes"] > 0,
+                f"dry run of {shape}: empty counts")
+    # (d) phase 4d's measured steps against their roofline bounds on one card
+    dense_s = trn["dense"]["step_s"][1:]
+    measured = {"spatial_lm": trn["spatial_lm"]["step_ms"] / 1e3,
+                "qwen3_8b_2_layers": sum(dense_s) / len(dense_s)}
+    out["step_shares"] = {k: {**step_share(measured[k], c["flops"], c["bytes"], c["dtype"]),
+                              "flops": c["flops"], "bytes": c["bytes"], "dtype": c["dtype"]}
+                          for k, c in res["steps"].items()}
+    emit({"roofline_share": out["step_shares"]})
+    out["launches"] = {**{k: 0 for k in path}, **sharded["launches"], sm90: path[sm90]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ---------------------------------------------------------------- entry
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2477,7 +2801,11 @@ def main() -> int:
                             "arctic-480b_decode_check_positions": [FAMILY_DECODE_SEQ, 64]},
                "train": {"qwen3-8b": {"n_layers": [get_config(LM_CONFIG).n_layers,
                                                    DENSE_TRAIN[0]],
-                                      "global_batch": [LM_FULL_BATCH, DENSE_TRAIN[1]]}}}
+                                      "global_batch": [LM_FULL_BATCH, DENSE_TRAIN[1]]}},
+               "mesh": {"qwen3-8b": {"n_layers": [get_config(LM_CONFIG).n_layers,
+                                                  DENSE_TRAIN[0]],
+                                     "global_batch": [LM_FULL_BATCH, DENSE_TRAIN[1]]},
+                        "ranks": [4, 1], "cli_steps": [TRAIN_STEPS, MESH_STEPS]}}
     if args.n_traj != FULL_N_TRAJ:
         reduced["n_traj"] = [FULL_N_TRAJ, args.n_traj]
     emit({"reduced": reduced})
@@ -2518,6 +2846,8 @@ def main() -> int:
         lm["wall_s"] = time.perf_counter() - t0
         emit({"lm_path": lm})
         table += check_flash(args.seed)
+        # phase 4e's dry run counts on the CPU beside phases 4c and 4d
+        dry = start_dryrun(Path(tmp))
         # phase 4c reads its prompts from the lake of 3a, so it runs before the
         # lake is removed
         t0 = time.perf_counter()
@@ -2529,6 +2859,9 @@ def main() -> int:
         emit({"train_path": {k: v for k, v in trn.items() if k in ("config", "vocab",
                                                                     "n_params", "launches",
                                                                     "wall_s")}})
+        # phase 4e: the mesh, every count set to 0 just before each of its paths
+        msh = mesh_path(args, lake, Path(tmp), counters, trn, dry)
+        emit({"mesh_path": {"wall_s": msh["wall_s"], "launches": msh["launches"]}})
     launches = {**{n: main["launches"][n] for n in FILE_KERNELS},
                 **{n: codec_launches[n] for n in CODEC_KERNELS},
                 **{n: lm["launches"][n] + fam["launches"][n] for n in LM_KERNELS},
@@ -2538,6 +2871,7 @@ def main() -> int:
     launches_feed = {n: feed["launches"][n] for n in launches}
     launches_4c = {n: fam["launches"][n] for n in launches}
     launches_train = {n: trn["launches"][n] for n in launches}
+    launches_mesh = {n: msh["launches"].get(n, 0) for n in launches}
     for row in table:
         emit({"kernel": row["name"], "mismatches": row["mismatches"],
               "kernel_ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
@@ -2546,6 +2880,7 @@ def main() -> int:
               "launches_feed": launches_feed[row["name"]],
               "launches_families": launches_4c[row["name"]],
               "launches_train": launches_train[row["name"]],
+              "launches_mesh": launches_mesh[row["name"]],
               "shape": row["shape"], "bytes": row["bytes"],
               **({"serve_shape": serve_shape[row["name"]]}
                  if row["name"] in serve_shape else {})})
@@ -2563,6 +2898,7 @@ def main() -> int:
                        "launches_feed": launches_feed[r["name"]],
                        "launches_families": launches_4c[r["name"]],
                        "launches_train": launches_train[r["name"]],
+                       "launches_mesh": launches_mesh[r["name"]],
                        **({"serve_shape": {k: serve_shape[r["name"]][k]
                                            for k in ("ms", "device_ms", "bound_ms")}}
                           if r["name"] in serve_shape else {})} for r in table]})
@@ -2572,4 +2908,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        sys.exit(dryrun_child())
+    if sys.argv[1:2] == ["--train-child"]:
+        sys.exit(train_child(sys.argv[2:]))
     sys.exit(main())

@@ -14,8 +14,19 @@ checkpoint/restart-safe: on boot it restores the latest checkpoint if one
 exists, which is what makes the supervisor's kill-and-relaunch loop a
 complete fault-tolerance story.
 
-``--mesh-data`` and ``--mesh-model`` take only 1 until the port has its
-sharding slice.
+Under ``torchrun`` (``WORLD_SIZE`` set) every rank joins the default
+process group (NCCL on ``--device cuda``, each rank on card ``LOCAL_RANK``;
+gloo on ``cpu``) and trains on ``make_host_mesh(--mesh-data,
+--mesh-model)``: every rank builds the same global batch from the same
+files and seed (on the card, kernels 1-2 run on every rank) and keeps its
+own block of it, as the reference puts one global batch on its mesh. Rank
+0 logs and writes checkpoints. Started plainly with the default mesh
+flags it trains on one device with no mesh; with larger ones it makes a
+one-rank group and the mesh clamps to (1, 1), as the reference clamps to
+the devices it finds::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh-data 2 \
+        --mesh-model 2 --device cpu --reduced
 """
 
 from __future__ import annotations
@@ -66,18 +77,16 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        ap.error("--mesh-data/--mesh-model other than 1 need the sharding slice, "
-                 "which the port does not have yet")
 
     from repro_torch._device import torch_device
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import Prefetcher, synthetic_token_iter
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.train_loop import run_train_loop
+    from repro_torch.train.train_loop import _accum_steps, _dp_size, run_train_loop
 
     torch_device(args.device)   # "cuda" without a card raises before any work
+    mesh, rank = _join_mesh(args)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -87,6 +96,9 @@ def main(argv=None):
     accum = max(cfg.grad_accum, 1)
     if args.global_batch % accum:
         accum = 1
+    if mesh is not None:   # each microbatch must tile the batch axes
+        accum = _accum_steps(dataclasses.replace(cfg, grad_accum=accum), args.global_batch,
+                             _dp_size(mesh))
     if args.data_dir:
         batcher = trajectory_batcher(args.data_dir, seq=args.seq,
                                      global_batch=args.global_batch, accum=accum,
@@ -104,7 +116,7 @@ def main(argv=None):
     # fault injection is once-only (a transient fault, not a deterministic
     # crash loop): a marker in the ckpt dir disarms it after the first hit
     fail_at = args.fail_at_step
-    marker = os.path.join(args.ckpt_dir, ".fault_injected")
+    marker = os.path.join(args.ckpt_dir, ".fault_injected" + (f".{rank}" if mesh else ""))
     if fail_at >= 0:
         if os.path.exists(marker):
             fail_at = -1
@@ -124,11 +136,45 @@ def main(argv=None):
         global_batch=args.global_batch, seq=args.seq, steps=args.steps,
         checkpoint_mgr=mgr, checkpoint_every=args.ckpt_every,
         resume=not args.no_resume, heartbeat=heartbeat,
-        fail_at_step=fail_at, device=args.device,
+        fail_at_step=fail_at, device=args.device, mesh=mesh,
+        log_every=10 if rank == 0 else 0,
     )
     mgr.wait()
-    print(f"[train] done: {args.steps} steps in {time.time()-t0:.1f}s; "
-          f"final loss {history[-1]['loss']:.4f}" if history else "[train] done")
+    if rank == 0:
+        print(f"[train] done: {args.steps} steps in {time.time()-t0:.1f}s; "
+              f"final loss {history[-1]['loss']:.4f}" if history else "[train] done")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _join_mesh(args):
+    """(mesh or None, this rank). Under ``torchrun`` join the default group
+    and build the mesh; started plainly, no mesh unless the flags ask for
+    one, which then lies over a one-rank group and clamps to (1, 1)."""
+    if "WORLD_SIZE" not in os.environ and args.mesh_data * args.mesh_model == 1:
+        return None, 0
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    backend = "nccl" if args.device.startswith("cuda") else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
+    else:
+        if backend == "nccl":
+            torch.cuda.set_device(0)
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    mesh = make_host_mesh(args.mesh_data, args.mesh_model)
+    rank = dist.get_rank()
+    if rank == 0:
+        print(f"[train] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+              f"{dist.get_world_size()} rank(s), backend {backend}", flush=True)
+    return mesh, rank
 
 
 if __name__ == "__main__":

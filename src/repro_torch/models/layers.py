@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..sharding.dtensor import batch_sum, replicate_dim
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -21,6 +23,14 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 # ------------------------------------------------------------------- init
+class MetaGenerator:
+    """Stands in for a :class:`torch.Generator` where parameters are only
+    described (device ``meta``): the initialisers then draw nothing and
+    allocate nothing, and give the shapes and dtypes of a real init."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0, scale: float = 1.0,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init on ``gen``'s device. ``shape`` may carry
@@ -31,6 +41,8 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0, scale: float = 1.0
     (arctic's bf16 expert stacks would need 36 GB of it each)."""
     std = scale / float(shape[in_axis]) ** 0.5
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     for idx in np.ndindex(*shape[:-2]):
         w = torch.empty(shape[-2:], dtype=torch.float32, device=gen.device)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -39,6 +51,8 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0, scale: float = 1.0
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     return w.normal_(0.0, 1.0, generator=gen).mul_(0.02).to(dtype)
 
@@ -112,6 +126,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None,
     subtracted there, and only the exp and its sum run in float32 (the
     reference's one-hot contraction picks the gold logit exactly, as the
     gather does)."""
+    # on a mesh the head shards the vocab over 'model' (the reference's
+    # lm_head spec) and may leave partial sums over the FSDP axes; the gather
+    # of the gold logit has no rule for either, so the logits are made whole
+    # along the vocab first (an explicit all-gather over 'model', an
+    # all-reduce of partial sums); the batch stays sharded
+    logits = replicate_dim(logits, -1)
     valid = (labels >= 0) if mask is None else mask & (labels >= 0)
     safe = labels.clamp(min=0).long()[..., None]
     count = valid.sum().clamp(min=1)
@@ -126,4 +146,4 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None,
         logz = torch.log(sumexp) + m.float()
         gold = torch.gather(logits, -1, safe)[..., 0].float()
     nll = (logz - gold) * valid
-    return nll.sum() / count, count
+    return batch_sum(nll) / count, count

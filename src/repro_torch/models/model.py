@@ -27,6 +27,13 @@ Families:
   encdec  whisper: stub audio frames -> encoder; decoder with cross-attention
   vlm     pixtral: stub ViT patch embeddings + adapter, decoder backbone
 
+On a mesh (DTensor parameters placed by the reference's partition rules)
+each layer's weights are gathered over the FSDP axes for their use
+(``gather_fsdp``), and the residual stream keeps the batch on the batch
+axes and is whole over 'model' between blocks (``batch_sharded``: the
+all-reduce that ends a tensor-parallel block). Without a mesh both are the
+identity.
+
 Parameters are stored in ``param_dtype`` and cast to the activation dtype
 at each use; logits come out in the activation dtype. The layer stack is a
 Python loop (no ``scan``, no ``jit``): PyTorch runs eagerly, so the
@@ -45,11 +52,12 @@ import torch
 
 from .._device import torch_device
 from ..configs.base import ModelConfig
+from ..sharding.dtensor import batch_sharded, embed_lookup, gather_fsdp, is_dtensor
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (cross_entropy_loss, dense_init, dtype_of, embed_init, init_mlp, mlp,
-                     rms_norm, sinusoidal_embedding)
+from .layers import (MetaGenerator, cross_entropy_loss, dense_init, dtype_of, embed_init,
+                     init_mlp, mlp, rms_norm, sinusoidal_embedding)
 
 
 def _layer(tree, i: int):
@@ -57,6 +65,20 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _weights(params: dict, key: str, layer: int | None = None):
+    """``params[key]`` (entry ``layer`` of a stacked tree), and on a mesh
+    gathered whole over the FSDP axes for its use (:func:`gather_fsdp`)."""
+    tree = params.get(key)
+    if tree is None:
+        return None
+    if layer is not None:
+        tree = _layer(tree, layer)
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return gather_fsdp(tree) if is_dtensor(leaf) else tree
 
 
 def _input(batch: dict, key: str, device: torch.device, dtype=torch.long) -> torch.Tensor:
@@ -104,10 +126,19 @@ def _init_attn_mlp_block(cfg: ModelConfig, gen, dtype, stack=()) -> dict:
     }
 
 
+def _device(device) -> torch.device:
+    """:func:`torch_device`, plus ``"meta"``: shapes and dtypes only, no
+    allocation (the dry run's parameters and caches)."""
+    return torch.device("meta") if str(device) == "meta" else torch_device(device)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    dev = torch_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    dev = _device(device)
+    if dev.type == "meta":
+        gen = MetaGenerator()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     pdt = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     params: dict = {
@@ -135,15 +166,15 @@ def _attn_block(cfg, lp, x, positions, cache=None, cache_pos=None):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     fwd = attn.mla_forward if cfg.mla is not None else attn.gqa_forward
     out, _ = fwd(cfg, lp["attn"], h, positions, cache=cache, cache_pos=cache_pos)
-    return x + out
+    return batch_sharded(x + out)
 
 
 def _ffn_block(cfg, lp, x):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         out, aux = moe_mod.moe_block(cfg, lp["moe"], h)
-        return x + out, aux
-    return x + mlp(lp["mlp"], h), {}
+        return batch_sharded(x + out), aux
+    return batch_sharded(x + mlp(lp["mlp"], h)), {}
 
 
 def _shared_block(cfg, sp, x, positions, cache=None, cache_pos=None, causal=True):
@@ -151,8 +182,8 @@ def _shared_block(cfg, sp, x, positions, cache=None, cache_pos=None, causal=True
     h = rms_norm(x, sp["ln1"], cfg.norm_eps)
     out, _ = attn.gqa_forward(cfg, sp["attn"], h, positions, causal=causal,
                               cache=cache, cache_pos=cache_pos)
-    x = x + out
-    return x + mlp(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps))
+    x = batch_sharded(x + out)
+    return batch_sharded(x + mlp(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps)))
 
 
 def _decoder_layer(cfg, lp, x, positions, *, shared=None, layer_idx=0, cache=None,
@@ -165,7 +196,7 @@ def _decoder_layer(cfg, lp, x, positions, *, shared=None, layer_idx=0, cache=Non
             out, _ = ssm_mod.ssm_decode_step(cfg, lp["ssm"], h, cache)
         else:
             out, _ = ssm_mod.ssm_forward(cfg, lp["ssm"], h, cache=cache)
-        x = x + out
+        x = batch_sharded(x + out)
         every = cfg.hybrid_attn_every
         if cfg.family == "hybrid" and shared is not None and layer_idx % every == every - 1:
             site = None if sites is None else _layer(sites, layer_idx // every)
@@ -174,7 +205,8 @@ def _decoder_layer(cfg, lp, x, positions, *, shared=None, layer_idx=0, cache=Non
     x = _attn_block(cfg, lp, x, positions, cache=cache, cache_pos=cache_pos)
     if cfg.family == "encdec":
         h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
-        x = x + attn.cross_attention(cfg, lp["cross"], h, enc_kv=cross_kv, enc_out=enc_out)
+        x = batch_sharded(x + attn.cross_attention(cfg, lp["cross"], h, enc_kv=cross_kv,
+                                                     enc_out=enc_out))
     return _ffn_block(cfg, lp, x)
 
 
@@ -184,10 +216,10 @@ def _embed_inputs(cfg, params, batch):
     adt = dtype_of(cfg.dtype)
     dev = params["embed"].device
     tokens = _input(batch, "tokens", dev)
-    x = params["embed"][tokens].to(adt)
+    x = embed_lookup(params["embed"], tokens).to(adt)
     label_mask = None
     if cfg.family == "vlm":
-        vis = _input(batch, "patches", dev, adt) @ params["frontend_adapter"].to(adt)
+        vis = _input(batch, "patches", dev, adt) @ _weights(params, "frontend_adapter").to(adt)
         x = torch.cat([vis, x], dim=1)
         label_mask = torch.cat([torch.zeros(vis.shape[:2], dtype=torch.bool, device=dev),
                                 torch.ones(tokens.shape, dtype=torch.bool, device=dev)], dim=1)
@@ -200,18 +232,18 @@ def _encode(cfg, params, batch):
     positions, non-causal attention layers, final norm."""
     adt = dtype_of(cfg.dtype)
     dev = params["embed"].device
-    x = _input(batch, "frames", dev, adt) @ params["frontend_adapter"].to(adt)
+    x = _input(batch, "frames", dev, adt) @ _weights(params, "frontend_adapter").to(adt)
     x = x + sinusoidal_embedding(x.shape[1], cfg.d_model, dev)[None].to(adt)
     positions = torch.arange(x.shape[1], device=dev)
     enc = params["encoder"]
     for i in range(cfg.n_encoder_layers):
-        x = _shared_block(cfg, _layer(enc["layers"], i), x, positions, causal=False)
+        x = _shared_block(cfg, _weights(enc, "layers", i), x, positions, causal=False)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def _logits(cfg, params, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = _weights(params, "embed").T if cfg.tie_embeddings else _weights(params, "lm_head")
     return x @ head.to(x.dtype)
 
 
@@ -221,13 +253,13 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
     ``aux`` holds the MoE losses summed over layers (empty for the rest)."""
     x, positions, label_mask = _embed_inputs(cfg, params, batch)
     enc_out = _encode(cfg, params, batch) if cfg.family == "encdec" else None
-    shared = params.get("shared_attn")
+    shared = _weights(params, "shared_attn")
     aux: dict = {}
     if cfg.family == "moe":
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = {"moe_aux_loss": zero, "router_z_loss": zero}
     for i in range(cfg.n_layers):
-        x, aux_i = _decoder_layer(cfg, _layer(params["layers"], i), x, positions,
+        x, aux_i = _decoder_layer(cfg, _weights(params, "layers", i), x, positions,
                                   shared=shared, layer_idx=i, enc_out=enc_out)
         aux = {k: aux[k] + v for k, v in aux_i.items()} if aux_i else aux
     return _logits(cfg, params, x), aux, label_mask
@@ -265,7 +297,7 @@ def _stacked(tree: dict, n: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> dict:
-    dev = torch_device(device)
+    dev = _device(device)
     adt = dtype_of(cfg.dtype)
     cache: dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.family in ("ssm", "hybrid"):
@@ -297,9 +329,9 @@ def forward_with_cache(cfg: ModelConfig, params: dict, batch: dict, cache: dict)
     dev = params["embed"].device
     tokens = _input(batch, "tokens", dev)
     pos0 = cache["pos"]
-    x = params["embed"][tokens].to(adt)
+    x = embed_lookup(params["embed"], tokens).to(adt)
     if cfg.family == "vlm" and "patches" in batch:
-        vis = _input(batch, "patches", dev, adt) @ params["frontend_adapter"].to(adt)
+        vis = _input(batch, "patches", dev, adt) @ _weights(params, "frontend_adapter").to(adt)
         x = torch.cat([vis, x], dim=1)
     s = x.shape[1]
     steps = torch.arange(s, device=dev)
@@ -314,13 +346,13 @@ def forward_with_cache(cfg: ModelConfig, params: dict, batch: dict, cache: dict)
     if cfg.family == "encdec" and "frames" in batch:
         # prefill: encode and cache each layer's cross K/V
         enc_out = _encode(cfg, params, batch)
-        kvs = [attn.make_cross_kv(cfg, _layer(params["layers"], i)["cross"], enc_out)
+        kvs = [attn.make_cross_kv(cfg, _weights(params, "layers", i)["cross"], enc_out)
                for i in range(cfg.n_layers)]
         new_cache["cross"] = {k: torch.stack([kv[k] for kv in kvs]) for k in ("k", "v")}
-    shared = params.get("shared_attn")
+    shared = _weights(params, "shared_attn")
     for i in range(cfg.n_layers):
         ckv = _layer(new_cache["cross"], i) if cfg.family == "encdec" else None
-        x, _ = _decoder_layer(cfg, _layer(params["layers"], i), x, positions, shared=shared,
+        x, _ = _decoder_layer(cfg, _weights(params, "layers", i), x, positions, shared=shared,
                               layer_idx=i, cache=_layer(cache["layers"], i),
                               cache_pos=cache_pos, sites=cache.get("sites"), cross_kv=ckv)
     new_cache["pos"] = pos0 + s

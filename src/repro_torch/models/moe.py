@@ -16,15 +16,21 @@ count of 64 with -1e30 router logits) and arctic (a parallel dense FFN
 residual + 128 routed top-2). Aux losses: the switch-style load-balance
 loss and the router z-loss.
 
-The reference's ``_constrain`` (a sharding hint for its mesh, with no effect
-on one device) has no counterpart: the port runs on one card.
+On a mesh the dispatch, the experts and the combine each run on every
+rank's own blocks (:func:`repro_torch.sharding.dtensor.local_call`), and
+the reference's ``_constrain`` hints (``moe_grouped`` only) become the
+placements the expert buffers are redistributed to between them; without a
+mesh nothing changes.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from ..sharding.dtensor import BATCH_AXES, is_dtensor, local_call
 from .layers import dense_init, init_mlp, mlp
 
 
@@ -71,12 +77,23 @@ def _router(cfg, p, xf):
     return probs, gate_vals, expert_idx, logits
 
 
+def _expert_counts(flat_idx: torch.Tensor, e_pad: int) -> torch.Tensor:
+    """Assignments per expert. ``bincount`` has no sharding rule and its
+    output length depends on the data, so on a mesh (and in the dry run's
+    fake tensors) the same integer counts come from a compare against each
+    expert id and a sum."""
+    if is_dtensor(flat_idx):
+        ids = torch.arange(e_pad, device=flat_idx.device)
+        return (flat_idx[:, None] == ids).sum(dim=0)
+    return torch.bincount(flat_idx, minlength=e_pad)
+
+
 def _aux_losses(cfg, probs, expert_idx, logits):
     moe = cfg.moe
     e_pad = probs.shape[-1]
     n_assign = expert_idx.numel()
     me = probs.reshape(-1, e_pad).mean(dim=0)
-    ce = torch.bincount(expert_idx.reshape(-1), minlength=e_pad).float() / n_assign
+    ce = _expert_counts(expert_idx.reshape(-1), e_pad).float() / n_assign
     aux_loss = moe.n_experts * torch.sum(me * ce) * moe.aux_loss_weight
     z_loss = moe.router_z_weight * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return {"moe_aux_loss": aux_loss, "router_z_loss": z_loss}
@@ -107,6 +124,43 @@ def _dispatch(flat_e: torch.Tensor, capacity: int, e_pad: int):
     return order, keep, buf_slot
 
 
+def _fill_buffers(sentinel: int, xg, token_of, buf_slot, keep):
+    """The per-expert buffers' rows ``(g, E * C, d)``: each kept assignment's
+    token at its slot; drops write to the sentinel row past the end, which
+    is cut off."""
+    g, _, d = xg.shape
+    gidx = torch.arange(g, device=xg.device)[:, None]
+    buf = torch.zeros((g, sentinel + 1, d), dtype=xg.dtype, device=xg.device)
+    vals = xg[gidx, token_of]
+    buf[gidx, buf_slot] = vals * keep[..., None].to(xg.dtype)
+    return buf[:, :-1]
+
+
+def _gather_outputs(sentinel: int, out_flat, buf_slot, order, flat_gates, keep):
+    """Each assignment's gated expert output, put back in (token, k) order
+    through the inverse of ``order`` (no atomics, so the card gives the
+    same sums on every run): ``(g, n * k, d)``."""
+    g = out_flat.shape[0]
+    gidx = torch.arange(g, device=out_flat.device)[:, None]
+    contrib = out_flat[gidx, buf_slot.clamp(max=sentinel - 1)]
+    sorted_gates = torch.gather(flat_gates, 1, order)
+    contrib = contrib * (sorted_gates * keep)[..., None].to(out_flat.dtype)
+    unsorted = torch.empty_like(contrib)
+    unsorted[gidx, order] = contrib
+    return unsorted
+
+
+def _experts(expert_in, w_gate, w_up, w_down):
+    """SwiGLU of every expert over its buffer: (g, E, C, d) -> (g, E, C, d).
+    Each weight is cast to the activation dtype just for its product, so
+    one cast copy at a time is alive (arctic's bf16 expert stacks are 17 GB
+    a layer in float32)."""
+    dt = expert_in.dtype
+    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, w_gate.to(dt))) \
+        * torch.einsum("gecd,edf->gecf", expert_in, w_up.to(dt))
+    return torch.einsum("gecf,efd->gecd", h, w_down.to(dt))
+
+
 def moe_block(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> (out, aux).
 
@@ -129,29 +183,33 @@ def moe_block(cfg, p, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     flat_e = expert_idx.reshape(g, n * k)
     flat_gates = gate_vals.reshape(g, n * k)
     order, keep, buf_slot = _dispatch(flat_e, capacity, e_pad)
-    sentinel = e_pad * capacity
     token_of = order // k                                        # (g, n*k)
 
-    gidx = torch.arange(g, device=x.device)[:, None]
-    buf = torch.zeros((g, sentinel + 1, d), dtype=x.dtype, device=x.device)
-    vals = xg[gidx, token_of]
-    buf[gidx, buf_slot] = vals * keep[..., None].to(x.dtype)
-    expert_in = buf[:, :-1].reshape(g, e_pad, capacity, d)
+    sentinel = e_pad * capacity
+    # On a mesh each stage runs on every rank's own blocks (local_call): the
+    # dispatch and the combine within the groups on the batch axes, the
+    # experts with groups on 'data' and experts on 'model' (the reference's
+    # ``_constrain`` hints, moe_grouped only), their weights gathered whole
+    # but for the expert dim. Between the stages the buffers are
+    # redistributed explicitly. Without a mesh these are plain calls.
+    grp = BATCH_AXES if cfg.moe_grouped else None
+    buf = local_call(functools.partial(_fill_buffers, sentinel),
+                     (xg, token_of, buf_slot, keep),
+                     ((grp, None, None), (grp, None), (grp, None), (grp, None)),
+                     (grp, None, None), (g, sentinel, d))
+    expert_in = buf.reshape(g, e_pad, capacity, d)
 
     # ---- expert computation: batched products over the expert axis
-    h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, p["w_gate"].to(x.dtype))) \
-        * torch.einsum("gecd,edf->gecf", expert_in, p["w_up"].to(x.dtype))
-    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(x.dtype))
+    ep = ("data" if cfg.moe_grouped else None, "model", None, None)
+    expert_out = local_call(_experts, (expert_in, p["w_gate"], p["w_up"], p["w_down"]),
+                            (ep, *[("model", None, None)] * 3), ep, tuple(expert_in.shape))
 
-    # ---- combine: each assignment's gated output, put back in (token, k)
-    # order through the inverse of ``order`` and summed over k (no atomics,
-    # so the card gives the same sums on every run)
+    # ---- combine: each assignment's gated output, summed over its token's k
     out_flat = expert_out.reshape(g, sentinel, d)
-    contrib = out_flat[gidx, buf_slot.clamp(max=sentinel - 1)]
-    sorted_gates = torch.gather(flat_gates, 1, order)
-    contrib = contrib * (sorted_gates * keep)[..., None].to(x.dtype)
-    unsorted = torch.empty_like(contrib)
-    unsorted[gidx, order] = contrib
+    unsorted = local_call(functools.partial(_gather_outputs, sentinel),
+                          (out_flat, buf_slot, order, flat_gates, keep),
+                          ((grp, None, None), (grp, None), (grp, None), (grp, None), (grp, None)),
+                          (grp, None, None), (g, n * k, d))
     y = unsorted.reshape(b * s, k, d).sum(dim=1)
 
     xf = x.reshape(b * s, d)

@@ -12,10 +12,13 @@ As in the rest of the port's LM stack, a given cache is written in place
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding.dtensor import BATCH_AXES, local_call, split_ready
 from .layers import dense_init, dtype_of, rms_norm
 
 
@@ -156,13 +159,18 @@ def ssm_forward(cfg, p, x, *, cache=None):
     cm_c = F.silu(_causal_depthwise_conv(cm, p["conv_C"], tails.get("conv_C")))
     dt = softplus(dt_raw.float() + p["dt_bias"])
     a_neg = -torch.exp(p["A_log"])
-    xh = xs_c.float().reshape(bsz, L, h, s.headdim)
-    y, s_final = ssd_scan(
-        xh, dt, a_neg, bm_c.float(), cm_c.float(),
-        chunk=min(s.chunk, L),
-        init_state=tails.get("state"),
-        matmul_dtype=dtype_of(getattr(cfg, "ssd_matmul_dtype", "float32")),
-    )
+    xh = split_ready(xs_c.float(), -1, h).reshape(bsz, L, h, s.headdim)
+    # each head's scan is its own: on a mesh it runs on each rank's heads
+    # and batch rows (local_call), with B and C whole
+    scan = functools.partial(ssd_scan, chunk=min(s.chunk, L),
+                             matmul_dtype=dtype_of(getattr(cfg, "ssd_matmul_dtype", "float32")))
+    heads = (BATCH_AXES, None, "model", None)
+    state = (BATCH_AXES, "model", None, None)
+    y, s_final = local_call(
+        lambda *a: scan(*a[:5], init_state=a[5]),
+        (xh, dt, a_neg, bm_c.float(), cm_c.float(), tails.get("state")),
+        (heads, heads[:3], ("model",), (BATCH_AXES, None, None), (BATCH_AXES, None, None), state),
+        [heads, state], [tuple(xh.shape), (bsz, h, n, s.headdim)])
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(bsz, L, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
@@ -200,7 +208,7 @@ def ssm_decode_step(cfg, p, x, cache):
     dt = softplus(dt_raw.float() + p["dt_bias"])                      # (B,H)
     a_neg = -torch.exp(p["A_log"])
     decay = torch.exp(dt * a_neg)                                     # (B,H)
-    xh = xs_c.float().reshape(bsz, h, s.headdim)
+    xh = split_ready(xs_c.float(), -1, h).reshape(bsz, h, s.headdim)
     state = cache["state"].float() * decay[:, :, None, None] + torch.einsum(
         "bh,bn,bhp->bhnp", dt, bm_c.float(), xh)
     cache["state"].copy_(state)

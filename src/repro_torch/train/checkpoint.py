@@ -26,6 +26,13 @@ change what an asynchronous write puts on disk. Leaves are encoded by a
 small thread pool and written in key order (the reference encodes them one
 after another; the bytes are the same). A failed asynchronous write is
 re-raised by the next ``wait`` or ``save`` (the reference's thread drops it).
+
+On a mesh (DTensor leaves, every rank calling ``save``), each leaf is
+gathered whole (``full_tensor``), rank 0 writes the same bytes a
+one-device save writes, and every ``wait`` ends at a barrier of the default
+group, so no rank reads a checkpoint before it is complete.
+``restore_latest(mesh=..., placements=...)`` places the host leaves on any
+mesh, whatever mesh saved them (the reference's elastic restore).
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import torch
 
 from .._device import torch_device
 from ..core.fp_delta import fp_delta_decode, fp_delta_encode
-from ..models.convert import flatten_with_paths, params_to, unflatten
+from ..models.convert import flatten_with_paths, params_to, tree_map, unflatten
+from ..sharding.dtensor import full, is_dtensor, shard_tensor
 
 _ENCODE_WORKERS = min(8, os.cpu_count() or 1)
 
@@ -149,13 +157,25 @@ class CheckpointManager:
         os.makedirs(self.dir, exist_ok=True)
         self.last_stats: CheckpointStats | None = None
         self.history: list[CheckpointStats] = []   # one entry per completed write
+        self._distributed = False   # set by the first save of DTensor leaves
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, params, opt_state, metadata: dict | None = None,
              block: bool = False):
-        """Snapshot every leaf to the host, then write (async by default)."""
-        leaves = [(k, to_host(t)) for k, t in
-                  flatten_with_paths({"params": params, "opt_state": opt_state})]
+        """Snapshot every leaf to the host, then write (async by default).
+        With DTensor leaves every rank calls this; rank 0 writes."""
+        flat = flatten_with_paths({"params": params, "opt_state": opt_state})
+        if any(is_dtensor(t) for _, t in flat):
+            import torch.distributed as dist
+
+            self._distributed = True
+            leaves = [(k, full(t)) for k, t in flat]   # collectives: every rank
+            if dist.get_rank() != 0:
+                self.wait()
+                return
+            leaves = [(k, to_host(t)) for k, t in leaves]
+        else:
+            leaves = [(k, to_host(t)) for k, t in flat]
         self.wait()
         if self.async_save and not block:
             self._thread = threading.Thread(
@@ -165,10 +185,15 @@ class CheckpointManager:
             self._write(step, leaves, metadata or {})
 
     def wait(self):
-        """Join the pending asynchronous write; re-raise its error, if any."""
+        """Join the pending asynchronous write; re-raise its error, if any.
+        After a distributed save, every rank then meets at a barrier."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._distributed:
+            import torch.distributed as dist
+
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -257,12 +282,19 @@ class CheckpointManager:
             flat[leaf["key"]] = from_host(arr, leaf["dtype"])
         return manifest["step"], unflatten(flat.items())
 
-    def restore_latest(self, device="cuda"):
+    def restore_latest(self, device="cuda", mesh=None, placements=None):
         """The newest checkpoint with every leaf on ``device`` ->
-        (step, params, opt_state), or None if there is none."""
+        (step, params, opt_state), or None if there is none. With a mesh,
+        ``placements`` (``{"params": ..., "opt_state": ...}``, trees of
+        DTensor placements) places each leaf on it."""
         dev = torch_device(device)
         loaded = self.load_host()
         if loaded is None:
             return None
         step, state = loaded
-        return step, params_to(state["params"], dev), params_to(state["opt_state"], dev)
+        params, opt_state = params_to(state["params"], dev), params_to(state["opt_state"], dev)
+        if mesh is not None:
+            put = lambda t, pl: shard_tensor(t, mesh, pl)   # noqa: E731
+            params = tree_map(put, params, placements["params"])
+            opt_state = tree_map(put, opt_state, placements["opt_state"])
+        return step, params, opt_state

@@ -8,8 +8,10 @@ data-feed batch over it, builds a reduced dense LM on the CPU, runs its
 forward and serves two requests, runs the forward and loss of every config's
 reduced variant (all six families), trains a reduced spatial-lm from the
 lake with a compressed checkpoint and resumes from it (``ml_dtypes`` blocked
-too: the port must run where it is not installed), and checks that every entry point's
-default device asks for a card.
+too: the port must run where it is not installed), checks that every entry point's
+default device asks for a card, and runs the sharding slice: partition rules
+on the production mesh shape, a sharded train step on a one-rank gloo group,
+the roofline terms and the dry run's no-allocation input specs.
 """
 
 import ast
@@ -173,6 +175,36 @@ if not torch.cuda.is_available():
         assert "no CUDA device" in str(e)
     else:
         raise AssertionError("restore on the default device ran without a card")
+
+# the sharding slice: partition rules, meshes, a sharded step on a one-rank
+# gloo group, the roofline tools and the dry run's no-allocation specs
+import torch.distributed as dist
+import repro_torch.sharding, repro_torch.launch.report
+from repro_torch.configs import SHAPES
+from repro_torch.launch.dryrun import input_specs
+from repro_torch.launch.mesh import make_host_mesh, production_shape
+from repro_torch.launch.roofline import count_params, model_flops, roofline_terms
+from repro_torch.sharding import param_specs
+from repro_torch.train.train_loop import make_train_step, mesh_layout, place
+from repro_torch.train.optimizer import opt_init
+
+q8 = get_config("qwen3-8b")
+specs, notes = param_specs(q8, production_shape(), build_model(q8).init(0, device="meta"))
+assert specs["layers"]["attn"]["wq"] == (None, "data", "model") and notes == []
+assert roofline_terms(model_flops(q8, SHAPES["train_4k"]) / 256, 0.0, 0.0)["dominant"] == "compute"
+assert input_specs(q8, SHAPES["decode_32k"])["cache"]["layers"]["k"].is_meta
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+mesh = make_host_mesh(2, 2)                 # clamps to (1, 1) on one rank
+assert tuple(mesh.shape) == (1, 1)
+small = get_config("internlm2-1.8b").reduced()
+oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+layout = mesh_layout(small, mesh, oc)
+p0 = build_model(small).init(0, device="cpu")
+step_fn, _ = make_train_step(small, oc, 2, 32, device="cpu", mesh=mesh)
+_, _, met = step_fn(place(p0, mesh, layout.params), place(opt_init(oc, p0), mesh, layout.opt_state),
+                    {"tokens": np.arange(64, dtype=np.int32).reshape(1, 2, 32) % small.vocab})
+assert bool(torch.isfinite(met["loss"])) and count_params(small) > 0
+dist.destroy_process_group()
 assert not {"jax", "ml_dtypes"} & {m.split(".")[0] for m in sys.modules
                                    if sys.modules[m] is not None}
 print("ISOLATED-OK", dev[2].records_returned)

@@ -1,7 +1,7 @@
 """The port's training CLI and supervisor on the CPU: the supervisor drill
 of ``tests/test_distributed.py`` (a trainer that crashes at step 6 is
 relaunched and resumes from its checkpoint to the end), a run over a
-sharded trajectory lake, and the flags the port does not take yet."""
+sharded trajectory lake, and a mesh asked for without ``torchrun``."""
 
 import os
 import subprocess
@@ -51,12 +51,18 @@ def test_cli_trains_from_a_lake(tmp_path):
 
 
 @pytest.mark.parametrize("args", [["--mesh-data", "2"], ["--mesh-model", "4"]])
-def test_cli_refuses_a_mesh(tmp_path, args):
+def test_cli_mesh_clamps_to_world(tmp_path, args):
+    """Started plainly (no ``torchrun``), a mesh larger than the one rank
+    there is clamps to (1, 1), as the reference's ``make_host_mesh`` clamps
+    to the devices it finds, and the run trains on it to the end."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced", "--device", "cpu",
+           "--steps", "2", "--global-batch", "4", "--seq", "32", "--ckpt-every", "2",
            "--ckpt-dir", str(tmp_path / "ck"), *args]
-    r = subprocess.run(cmd, capture_output=True, text=True, env=_env(), timeout=120)
-    assert r.returncode == 2 and "sharding slice" in r.stderr
-    assert not (tmp_path / "ck").exists()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=_env(), timeout=300)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    assert "[train] mesh {'data': 1, 'model': 1} over 1 rank(s), backend gloo" in r.stdout
+    assert "[train] done: 2 steps" in r.stdout
+    assert sorted(os.listdir(tmp_path / "ck")) == ["latest", "step_00000002"]
 
 
 def test_cli_feed_tokens_match_reference_feed(tmp_path):
