@@ -40,7 +40,7 @@ Phases, each fatal on failure (nothing is caught):
    sequence length, its batch of 256 cut to 2) must launch the flash kernel
    once per layer; a ``BatchedServer(max_batch=4, max_len=256)`` then
    answers 8 requests of 16-64 random tokens, 16 new tokens each, as a
-   functional check; a second server (``max_batch=32``) answers 256 such
+   functional check; a second server (``max_batch=32``) answers 128 such
    requests of 128 new tokens, submitted at once, and its wall time,
    tokens/s and TTFT / latency percentiles are the serving measurement. The
    logits are held against the same forward with the plain attention
@@ -49,17 +49,20 @@ Phases, each fatal on failure (nothing is caught):
    forward and of one decode step (batch 32) splits their device time by
    kernel group. Then the float32 route, every count set to 0 just before:
    the same forward in float32 compute with ``attn_impl="flash"`` must
-   launch the CUDA-core flash kernel once per layer (and the sm90 kernel
+   launch the split-TF32 flash kernel once per layer (and the sm90 kernel
    never) and lie no farther from the float32 plain forward than the bf16
    plain forward does;
 5. both flash kernels against their plain version through ``ops.attention``
    (see :func:`check_flash` for the tolerances): bf16 (the sm90 ``wgmma``
-   kernel) and float32 (the CUDA-core kernel) at the LM path's shape and at
-   the reference's six test shapes (GQA, rectangular, single-token,
-   ragged, non-causal); then the times at the LM shape of the sm90 kernel,
-   the plain version and SDPA (a yardstick the port never calls) on bf16
-   inputs, and of the CUDA-core kernel, the plain version and SDPA on
-   float32 ones.
+   kernel) and float32 (the split-TF32 ``mma.sync`` kernel) at the LM
+   path's shape and at the reference's six test shapes (GQA, rectangular,
+   single-token, ragged, non-causal), float32 also at two causal shapes
+   with Sq > Sk, whose rows that see no key must be exactly 0; then the
+   times at the LM shape of the sm90 kernel, the plain version and SDPA (a
+   yardstick the port never calls) on bf16 inputs, and of the split-TF32
+   kernel, the plain version and SDPA on float32 ones. The float32
+   library's tensor-core instructions (``HMMA`` in ``cuobjdump -sass``)
+   are counted.
 
 Between phases 3 and 4 run the four paths added after them, in the order
 3a, 3c, 3d, 3b (3c and 3d read the lake 3a writes):
@@ -86,10 +89,10 @@ Between phases 3 and 4 run the four paths added after them, in the order
     plain version;
 3c. the serve path, over the lake of 3a, with every launch count set to 0
     just before each server: ``SpatialQueryServer(device="cuda",
-    cache_rgs=32, max_wave=64)`` answers 1, 16 and 64 bbox queries (boxes
+    cache_rgs=32, max_wave=64)`` answers 1, 16 and 32 bbox queries (boxes
     cycling 1, 5, 10, 25 and 50 % record selectivity, the reference serve
-    benchmark's traffic), each count on a fresh server; the 64-query server
-    then answers the same 64 boxes again, which must decode nothing (no
+    benchmark's traffic), each count on a fresh server; the 32-query server
+    then answers the same 32 boxes again, which must decode nothing (no
     ``device.refine_multi_launch`` span, no kernel launch: the row groups
     come from the cache on the card). Every query is held exactly against
     the dataset oracle (coordinates, extras, ``ReadStats``); after
@@ -146,8 +149,9 @@ timings after (a)'s drill read a batcher of their own, counted apart as
     with AdamW at the CLI's defaults (seq 256, global batch 8, lr 3e-4, 200
     steps, a compressed checkpoint every 50), fed by the CLI's own feed,
     ``Prefetcher(trajectory_batcher(lake, device="cuda"))``, whose batcher
-    reads with the tokenizer's box, so each shard read decodes and refines
-    on the card (kernels 1 and 2 must launch). The
+    reads with no box, as the reference's CLI does, so each shard read
+    decodes on the card and is not refined (kernel 1 must launch, kernel 2
+    must not). The
     first step's loss and every gradient leaf are held against the same
     step on the CPU (see :func:`train_path`); the last logged loss must be
     below the first; the last checkpoint, decoded on the host, must equal
@@ -174,7 +178,8 @@ paths (``launches_mesh`` on the kernel lines):
     --nproc-per-node 1`` with ``--mesh-data 1 --mesh-model 1`` (a one-rank
     NCCL group; each run a child process, ``--train-child``, which reports
     its kernel counts): the mesh run's logged losses within 2e-4 of the
-    plain run's, kernels 1 and 2 launched on the mesh; then in this process
+    plain run's, kernel 1 launched on the mesh and kernel 2 not (the feed
+    reads with no box); then in this process
     the same step on the one-rank mesh beside the plain step, timed in turns
     (the mesh's DTensor dispatch is what the difference measures);
     (b) qwen3-8b at its published widths, 2 of its 36 layers, bf16 compute,
@@ -216,6 +221,7 @@ FULL_N_TRAJ = 1_710_670          # ECML/PKDD 2015 taxi-trajectory challenge trip
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores (data sheet)
+TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak (data sheet)
 KERNEL_LIBS = ("fp_delta_decode", "segminmax_refine", "page_minmax", "flash_attention",
                "flash_attention_sm90", "miniblock")
 FILE_KERNELS = ("fp_delta.decode_stream", "minmax.segminmax_refine", "minmax.page_minmax")
@@ -230,11 +236,14 @@ LM_BATCH, LM_SEQ, LM_FULL_BATCH = 2, 4096, 256   # train_4k: seq 4096, global ba
 # sends, up to a whole Porto trip of about 48 points) in a cache of 256 positions.
 SERVE_MAX_LEN = 256
 SERVE_CHECK_REQUESTS = 8                        # functional check, max_batch 4, 16 new tokens
-SERVE_LOAD = (256, 32, 128)                      # requests, max_batch, max_new_tokens
+# requests (cut from 256 to keep the script inside its time limit: four full
+# batches), max_batch, max_new_tokens
+SERVE_LOAD = (128, 32, 128)
 # Serve path: the reference serve benchmark's traffic (benchmarks/bench_serve.py):
 # boxes cycle these record selectivities; the whole lake fits in the cache.
 QUERY_FRACS = (0.01, 0.05, 0.10, 0.25, 0.50)
-SERVE_COUNTS = (1, 16, 64)                      # the reference's 256 cut to one full wave
+# the reference's 256 cut to half a wave (64 until the script neared its time limit)
+SERVE_COUNTS = (1, 16, 32)
 SERVE_MAX_WAVE, SERVE_CACHE_RGS = 64, 32
 SERVE_SPANS = ("device.h2d", "device.refine_multi_launch", "device.refine_cached",
                "device.gather")
@@ -437,6 +446,19 @@ def device_ms(fn, iters: int = 10, warmup: int = 2):
             return us / iters / 1e3
     emit({"device_ms": "not measured: three profiler traces showed no device activity"})
     return None
+
+
+def hmma_count(lib: str):
+    """Tensor-core (HMMA) instructions in a built kernel library, from
+    ``cuobjdump -sass`` beside ``nvcc``; None where the toolkit has none."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_build._lib_path(lib))], capture_output=True,
+                          text=True, check=True).stdout
+    return sum("HMMA" in ln for ln in sass.splitlines())
 
 
 def read_split(tracer, wall_s: float) -> dict:
@@ -1554,7 +1576,7 @@ def lm_path(args, counters) -> dict:
     del flash, plain
 
     # the float32 route: the same forward in float32 compute with the flash
-    # kernel, every count set to 0 just before; it launches the CUDA-core
+    # kernel, every count set to 0 just before; it launches the split-TF32
     # kernel once a layer and must lie no farther from the float32 plain
     # forward than the bf16 plain forward does
     f32_flash_model = build_model(dataclasses.replace(base, attn_impl="flash", dtype="float32"))
@@ -1615,6 +1637,9 @@ FLASH_SHAPES = [  # tests/test_kernels.py of the reference: (b, hq, hkv, sq, sk,
     (1, 2, 2, 1, 128, 64, True),
     (1, 2, 2, 100, 128, 64, True),
 ]
+# causal, Sq > Sk: rows r < Sq - Sk see no key (float32 only; the bf16
+# kernel's are held by tests/test_torch_cuda.py)
+F32_DARK_SHAPES = [(1, 2, 2, 200, 128, 64, True), (1, 4, 2, 300, 128, 128, True)]
 
 
 def family_flash_shapes() -> list[tuple[str, tuple]]:
@@ -1651,8 +1676,17 @@ def check_flash(seed: int) -> list[dict]:
     plain version's softmax-weighted mean of |v| (2^-15 A: second-order
     terms; 1e-5: float32 sum order). The reference's 3e-2 against the bf16
     plain version (which also rounds P) is checked too, as its parity
-    number. float32 (the CUDA-core kernel): 1e-5 at the LM shape, the
-    reference's 2e-5 at its six shapes.
+    number. float32 (the split-TF32 kernel): 1e-5 at the LM shape, the
+    reference's 2e-5 at its six shapes; at the two Sq > Sk shapes
+    (:data:`F32_DARK_SHAPES`) the rows r < Sq - Sk, which see no key, must
+    be exactly 0 (the TPU kernel skips their front-padded block whole) and
+    the others lie within 2e-5.
+
+    Bounds at the LM shape: bf16 by operations at the tensor cores' bf16
+    peak. The float32 kernel forms each product from three TF32 passes, so
+    its bound is 3 x flops at the TF32 peak (or its bytes, whichever is
+    larger); the CUDA-core figure (flops at the float32 peak outside the
+    tensor cores, the bound of the kernel it replaced) is kept beside it.
     """
     import torch
 
@@ -1680,15 +1714,19 @@ def check_flash(seed: int) -> list[dict]:
     cases += [(name(sh, dt), sh, dtype) for dt, dtype in (("bf16", torch.bfloat16),
                                                          ("f32", torch.float32))
               for sh in FLASH_SHAPES]
+    cases += [(name(sh, "f32_dark"), sh, torch.float32) for sh in F32_DARK_SHAPES]
     bad = {torch.bfloat16: 0, torch.float32: 0}
     err = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for case, (b, hq, hkv, sq, sk, d, causal), dt in cases:
         q, k, v = qkv(b, hq, hkv, sq, sk, d, dt)
         got = attention(q, k, v, causal=causal).float()
         want = attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        dark = max(sq - sk, 0) if causal else 0   # rows that see no key
+        dark_zero = bool((got[:, :, :dark] == 0).all())
+        got, want = got[:, :, dark:], want[:, :, dark:]
         diff = (got - want).abs()
         if dt == torch.bfloat16:
-            a = attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)
+            a = attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)[:, :, dark:]
             tol = 2.0 ** -8 * want.abs() + (2.0 ** -8 + 2.0 ** -15) * a + 1e-5
             rule = "2^-8 |want32| + (2^-8 + 2^-15) A + 1e-5"
             del a
@@ -1701,8 +1739,12 @@ def check_flash(seed: int) -> list[dict]:
                 "shape": [b, hq, hkv, sq, sk, d], "causal": causal, "max_abs_err": e,
                 "tolerance": rule, "largest_share_of_tol": share}
         ok = share <= 1.0
+        if dark:
+            line["rows_without_keys"] = {"rows": dark, "all_zero": dark_zero}
+            ok = ok and dark_zero
         if dt == torch.bfloat16:
-            pe = float((got - attention_plain(q, k, v, causal=causal).float()).abs().max())
+            pe = float((got - attention_plain(q, k, v, causal=causal).float()[:, :, dark:])
+                       .abs().max())
             line["vs_bf16_plain"] = {"max_abs_err": pe, "tolerance": 3e-2}
             ok = ok and pe <= 3e-2
         emit(line)
@@ -1735,12 +1777,17 @@ def check_flash(seed: int) -> list[dict]:
     bytes_moved = 2 * (2 * q.numel() + k.numel() + v.numel())   # bf16 q, k, v read; o written
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S, bytes_moved / HBM_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
-    # the float32 kernel: the same work on CUDA cores, float32 operands
-    f32_ops, f32_bytes = flops / FP32_FLOPS_PER_S, 2 * bytes_moved / HBM_BYTES_PER_S
+    # the float32 kernel: float32 operands, each product three TF32 passes
+    f32_ops, f32_bytes = 3 * flops / TF32_FLOPS_PER_S, 2 * bytes_moved / HBM_BYTES_PER_S
+    f32_bound = {"split_tf32_ms": f32_ops * 1e3, "bytes_ms": f32_bytes * 1e3,
+                 "cuda_cores_ms": flops / FP32_FLOPS_PER_S * 1e3,
+                 "hmma_instructions": hmma_count("flash_attention")}
     emit({"flash_attention_times_ms": {
-        "sm90_bf16": [k_ms, k_ms2], "cuda_cores_float32": f32_ms, "sdpa_bf16": l_ms,
+        "sm90_bf16": [k_ms, k_ms2], "split_tf32_float32": f32_ms, "sdpa_bf16": l_ms,
         "sdpa_float32": f32_lib_ms, "plain_bf16": p_ms, "plain_float32": f32_p_ms,
-        "bound": bound_ms, "shape": list(main_shape)}})
+        "bound": bound_ms, "bound_float32": f32_bound, "shape": list(main_shape)}})
+    require(f32_bound["hmma_instructions"] != 0,
+            "the float32 flash library holds no tensor-core (HMMA) instruction")
     require(bad[torch.float32] == 0, "the float32 flash kernel disagrees with its plain version")
     row = dict(route="cuda", replaces="src/repro/kernels/flash_attention/kernel.py:82", flops=flops)
     shape = {"b": b, "hq": hq, "hkv": hkv, "s": sq, "d": d}
@@ -1755,6 +1802,7 @@ def check_flash(seed: int) -> list[dict]:
                  device_ms=f32_dev, plain_ms=f32_p_ms, bytes=2 * bytes_moved,
                  bound_ms=max(f32_ops, f32_bytes) * 1e3,
                  bound_by="operations" if f32_ops >= f32_bytes else "bytes",
+                 bound_detail=dict(f32_bound, route="split TF32: 3 x flops at 495 TFLOP/s"),
                  library_ms=f32_lib_ms, tflops=flops / f32_ms / 1e9,
                  shape=dict(shape, dtype="float32"))]
 
@@ -2195,8 +2243,8 @@ def train_path(args, lake: Path, work: Path, counters) -> dict:
     for c in counters:
         c.launches = 0
     t_phase = time.perf_counter()
-    # the CLI's own feed (its batcher reads with the tokenizer's box, so each
-    # shard read refines on the card: kernel 2)
+    # the CLI's own feed (its batcher reads with no box, as the reference's
+    # does: each shard read decodes on the card, kernel 1, and is not refined)
     batcher = trajectory_batcher(lake, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                                  seed=args.seed, device=DEVICE)
     feed = Prefetcher(batcher)
@@ -2295,8 +2343,10 @@ def train_path(args, lake: Path, work: Path, counters) -> dict:
     # producer runs at most a queue's depth ahead, inside the shard it holds)
     run["launches"] = path = _counts(counters)
     run["feed_stalls"] = feed.stalls
-    for name in FILE_KERNELS[:2]:
-        require(path[name] > 0, f"kernel {name} was not launched by the training feed")
+    require(path[FILE_KERNELS[0]] > 0,
+            f"kernel {FILE_KERNELS[0]} was not launched by the training feed")
+    require(path[FILE_KERNELS[1]] == 0,
+            f"kernel {FILE_KERNELS[1]} ran on the training feed, which reads with no box")
 
     # one step's device split, and the wide shape's step time (a batcher of
     # its own, whose shard read is counted apart as measurement_launches)
@@ -2627,8 +2677,10 @@ def mesh_path(args, lake: Path, work: Path, counters, trn: dict, dry) -> dict:
     for d in ("cli_plain", "cli_mesh"):
         require(sorted(p.name for p in (work / d).iterdir() if p.name.startswith("step_"))
                 == saves, f"{d}: checkpoints {saves} missing")
-    for name in FILE_KERNELS[:2]:
-        require(sharded["launches"][name] > 0, f"kernel {name} was not launched on the mesh")
+    require(sharded["launches"][FILE_KERNELS[0]] > 0,
+            f"kernel {FILE_KERNELS[0]} was not launched on the mesh")
+    require(sharded["launches"][FILE_KERNELS[1]] == 0,
+            f"kernel {FILE_KERNELS[1]} ran on the mesh's feed, which reads with no box")
     out["cli"] = {"plain": plain, "mesh": sharded, "loss_max_abs_diff": loss_diff,
                   "tolerance": "2e-4 on each logged loss (4 decimals printed)"}
     emit({"mesh_cli": out["cli"]})
@@ -2780,7 +2832,8 @@ def main() -> int:
     t_start = time.perf_counter()
     _build.build_all(KERNEL_LIBS)
     emit({"build_s": time.perf_counter() - t_start})
-    for lib in ("flash_attention_sm90", "fp_delta_decode", "miniblock", "page_minmax"):
+    for lib in ("flash_attention_sm90", "flash_attention", "fp_delta_decode", "miniblock",
+                "page_minmax"):
         ptxas = [ln.strip() for ln in _build.logs.get(lib, "").splitlines()
                  if any(w in ln for w in ("entry function", "spill", "Used", "arning"))]
         if ptxas:
@@ -2792,7 +2845,8 @@ def main() -> int:
         c.kname = name
     emit({"kernel_names": names})
     reduced = {"lm": {"config": LM_CONFIG, "shape": "train_4k", "seq_len": LM_SEQ,
-                      "global_batch": [LM_FULL_BATCH, LM_BATCH]},
+                      "global_batch": [LM_FULL_BATCH, LM_BATCH],
+                      "serve_load_requests": [256, SERVE_LOAD[0]]},
                "serve": {"query_counts": [[1, 16, 256], list(SERVE_COUNTS)],
                          "sequential_queries": [SERVE_COUNTS[-1], len(QUERY_FRACS)]},
                "families": {"shape": "train_4k", "global_batch": [LM_FULL_BATCH, LM_BATCH],
@@ -2899,6 +2953,7 @@ def main() -> int:
                        "launches_families": launches_4c[r["name"]],
                        "launches_train": launches_train[r["name"]],
                        "launches_mesh": launches_mesh[r["name"]],
+                       **({"bound_detail": r["bound_detail"]} if "bound_detail" in r else {}),
                        **({"serve_shape": {k: serve_shape[r["name"]][k]
                                            for k in ("ms", "device_ms", "bound_ms")}}
                           if r["name"] in serve_shape else {})} for r in table]})

@@ -3,7 +3,9 @@
 - bf16 goes to :func:`flash_attention_sm90` (``csrc/flash_attention_sm90.cu``:
   ``wgmma`` on the tensor cores, fed by TMA through a ring of K/V tiles);
 - float32 goes to :func:`flash_attention_f32` (``csrc/flash_attention.cu``:
-  float32 on CUDA cores, the 1e-5 yardstick).
+  split TF32 on the tensor cores, ``mma.sync`` fed by ``cp.async``: each
+  operand is split into two TF32 parts and each product formed in three
+  passes, float32-accurate to the 1e-5 yardstick).
 
 :func:`flash_attention` picks the route by dtype; there is no fallback
 from one kernel to the other. Each wrapper checks its arguments, allocates
@@ -68,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with a contiguous head dim, so a (B, S, H, D) tensor's transposed view
     goes in without a copy. float32 or bf16, D in 32, 64, 128. Returns a
     contiguous (B, Hq, Sq, D) tensor in q's dtype. bf16 launches the
-    ``wgmma`` kernel, float32 the CUDA-core kernel.
+    ``wgmma`` kernel, float32 the split-TF32 kernel.
     """
     fn = flash_attention_sm90 if q.dtype == torch.bfloat16 else flash_attention_f32
     return fn(q, k, v, causal=causal, sm_scale=sm_scale)
@@ -76,10 +78,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
-    """The CUDA-core kernel (``csrc/flash_attention.cu``), float32 only."""
+    """The split-TF32 kernel (``csrc/flash_attention.cu``), float32 only.
+
+    Its 128-row query tiles start where the reference's front-padded blocks
+    start, so with Sk % 128 == 0 a causal row that sees no key comes out 0,
+    as through the TPU kernel. 16-byte copies where every base and stepped
+    stride allows them, 4-byte copies otherwise."""
     b, hq, hkv, sq, sk, d = _shapes(q, k, v)
     if q.dtype != torch.float32:
-        raise TypeError(f"the CUDA-core kernel takes float32, got {q.dtype}")
+        raise TypeError(f"the split-TF32 kernel takes float32, got {q.dtype}")
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)

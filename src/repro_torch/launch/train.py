@@ -4,12 +4,11 @@
 Trains any registry architecture on either the Spatial Parquet trajectory
 pipeline (``--data-dir``: a directory of ``.spqf`` files or a sharded
 dataset; the paper-integration path) or the structured synthetic stream.
-The trajectory feed reads with the tokenizer's box as its query box (the
-reference reads with none): a trip whose bounding box misses the
-tokenizer's box is dropped rather than tokenized onto the box's edge cells,
-and every other trip gives the same tokens. So on ``--device cuda`` (the
-default) each shard read runs the page-stream decode and the per-record
-refine kernels on the card. Always
+The trajectory feed reads with no query box, as the reference's does: every
+trip is tokenized, a point outside the tokenizer's box onto the box's edge
+cells. So on ``--device cuda`` (the default) each shard read runs the
+page-stream decode on the card and no per-record refine (an unboxed read
+is not refined). Always
 checkpoint/restart-safe: on boot it restores the latest checkpoint if one
 exists, which is what makes the supervisor's kill-and-relaunch loop a
 complete fault-tolerance story.
@@ -18,7 +17,7 @@ Under ``torchrun`` (``WORLD_SIZE`` set) every rank joins the default
 process group (NCCL on ``--device cuda``, each rank on card ``LOCAL_RANK``;
 gloo on ``cpu``) and trains on ``make_host_mesh(--mesh-data,
 --mesh-model)``: every rank builds the same global batch from the same
-files and seed (on the card, kernels 1-2 run on every rank) and keeps its
+files and seed (on the card, kernel 1 runs on every rank) and keeps its
 own block of it, as the reference puts one global batch on its mesh. Rank
 0 logs and writes checkpoints. Started plainly with the default mesh
 flags it trains on one device with no mesh; with larger ones it makes a
@@ -42,7 +41,8 @@ def trajectory_batcher(data_dir, *, seq: int, global_batch: int, accum: int = 1,
                        seed: int = 0, device="cuda"):
     """The CLI's trajectory feed over ``data_dir`` (a directory of ``.spqf``
     files or a sharded dataset): a ``TrajectoryBatcher`` with the Porto
-    tokenizer (``.tok``), reading with the tokenizer's box."""
+    tokenizer (``.tok``), reading with no box as the reference's CLI does,
+    so every shard is read and every trip tokenized."""
     from repro_torch.data.pipeline import TrajectoryBatcher
     from repro_torch.data.synthetic import PORTO_BBOX
     from repro_torch.data.tokenizer import GeoTokenizer
@@ -54,7 +54,7 @@ def trajectory_batcher(data_dir, *, seq: int, global_batch: int, accum: int = 1,
         raise SystemExit(f"no .spqf files or dataset in {data_dir}")
     tok = GeoTokenizer(PORTO_BBOX, order=6)
     return TrajectoryBatcher(files, tok, seq_len=seq, global_batch=global_batch,
-                             accum=accum, bbox=tok.bbox, seed=seed, device=device)
+                             accum=accum, seed=seed, device=device)
 
 
 def main(argv=None):

@@ -641,7 +641,7 @@ def test_flash_kernel_matches_plain(card, rng, dtype, tol, d, b, hq, hkv, sq, sk
     bf16, where the plain version rounds P to bf16 before P.V). In bf16 that
     3e-2 is about as large as a typical output, so each element is also
     held to the float32 plain version by :func:`_within_bf16_bound`. bf16
-    goes through the sm90 kernel, float32 through the CUDA-core one."""
+    goes through the sm90 kernel, float32 through the split-TF32 one."""
     from repro_torch.kernels.flash_attention import attention, attention_plain
 
     q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, h, s, d)).astype(np.float32))
@@ -708,8 +708,61 @@ def test_sm90_rows_without_keys_follow_tpu_schedule(card, rng):
     assert ok, share
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [(1, 2, 2, 200, 128, 64), (1, 4, 2, 300, 128, 128)])
+def test_f32_rows_without_keys_follow_tpu_schedule(card, rng, b, hq, hkv, sq, sk, d):
+    """float32, causal, Sq > Sk: rows r < Sq - Sk see no key. The float32
+    kernel lays out its 128-row query tiles as the reference's front-padded
+    blocks, so those rows lie in tiles it skips whole and are exactly 0, as
+    through the TPU kernel (``tests/test_torch_flash_attention.py::
+    test_split_tf32_rows_without_keys_match_tpu_kernel``); the others lie
+    within the reference's 2e-5 of the plain version."""
+    from repro_torch.kernels.flash_attention import attention, attention_plain
+
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, h, s, d)).astype(np.float32)).to(card)
+               for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n0 = _launches()
+    got = attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _launches() == (n0[0], n0[1] + 1)
+    dark = sq - sk
+    assert bool((got[:, :, :dark] == 0).all())
+    want = attention_plain(q, k, v, causal=True)
+    assert float((got[:, :, dark:] - want[:, :, dark:]).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal,layout", [
+    (1, 2, 2, 1024, 1024, True, "bhsd"),    # sixteen key tiles, eight query tiles
+    (1, 2, 2, 2048, 2048, True, "bhsd"),    # thirty-two key tiles
+    (1, 32, 8, 1024, 1024, True, "bsh"),    # qwen3-8b's GQA 32/8, as the model passes views
+    (1, 2, 2, 1000, 1024, True, "bhsd"),    # ragged q: the first query tile starts at -24
+    (1, 2, 2, 1024, 1024, False, "bhsd"),   # non-causal: no diagonal tile
+    (1, 4, 2, 256, 256, True, "odd"),       # rows 129 floats apart: the 4-byte copies
+])
+def test_f32_kernel_multi_tile(card, rng, b, hq, hkv, sq, sk, causal, layout):
+    """float32 at D = 128 across many double-buffered K/V tiles and the
+    diagonal, V rows all distinct (the P.V fragment reads V's rows in a
+    permuted order): within the reference's 2e-5 of the plain version."""
+    from repro_torch.kernels.flash_attention import attention, attention_plain
+
+    def one(h, s):
+        shape = (b, s, h, 128) if layout == "bsh" else (b, h, s, 128 + (layout == "odd"))
+        t = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(card)
+        return t.transpose(1, 2) if layout == "bsh" else t[..., :128]
+
+    q, k, v = one(hq, sq), one(hkv, sk), one(hkv, sk)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n0 = _launches()
+    got = attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _launches() == (n0[0], n0[1] + 1)
+    assert got.is_contiguous() and got.shape == (b, hq, sq, 128)
+    want = attention_plain(q, k, v, causal=causal)
+    assert float((got - want).abs().max()) < 2e-5
+
+
 def test_flash_routes_by_dtype(card, rng):
-    """bf16 launches the sm90 kernel and float32 the CUDA-core kernel, each
+    """bf16 launches the sm90 kernel and float32 the split-TF32 kernel, each
     counted by its own wrapper; each wrapper refuses the other's dtype."""
     from repro_torch.kernels.flash_attention import kernel
 

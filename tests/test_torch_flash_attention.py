@@ -207,3 +207,113 @@ def test_sm90_bound_rejects_broken_variants(rng, fault):
     q, k, v = _bf16_inputs(rng, 1, 4, 2, 1024, 1024, 128)
     kw = {"shift": 1} if fault == "mask_shifted_by_one_key" else {"rescale": False}
     assert _share_of_bound(_emulate_sm90(q, k, v, True, **kw), q, k, v, True) > 1.0
+
+
+# ------------------------------------ the float32 kernel's split-TF32 model
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, ties away
+    from zero (the low 13 bits cleared after adding half of them)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_product(a, b, passes):
+    """``a @ b`` as the tensor cores form it from TF32 operands: with
+    ``passes=3`` each operand is split into hi = tf32(x) and lo = tf32(x -
+    hi) and the product is lo.hi' + hi.lo' + hi.hi', small terms first
+    (lo.lo' is dropped); ``passes=2`` drops hi.lo' too, and ``passes=1`` is
+    plain TF32, hi.hi' alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    small = _tf32(a - ah) @ bh
+    if passes == 3:
+        small = small + ah @ _tf32(b - bh)
+    return small + ah @ bh
+
+
+def _emulate_split_tf32(q, k, v, causal=True, passes=3):
+    """The arithmetic of ``csrc/flash_attention.cu`` in plain torch on
+    float32 tensors: 128-row query tiles laid out as the reference's
+    front-padded blocks (the first starts at row -((-Sq) mod 128)), each
+    running 64-key tiles up to its causal limit (a tile wholly above the
+    diagonal runs none and writes 0); S = Q.K^T and O += P.V as split-TF32
+    products; logits scaled, then masked to -1e30; the online softmax in
+    float32 with exp; the output acc / max(l, 1e-30)."""
+    hq, hkv, sq, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    k = k.repeat_interleave(hq // hkv, dim=1)
+    v = v.repeat_interleave(hq // hkv, dim=1)
+    sk = k.shape[2]
+    scale, off, pad = 1.0 / d ** 0.5, sk - sq, (-sq) % 128
+    qp = torch.nn.functional.pad(q, (0, 0, pad, 0))
+    out = torch.empty(q.shape)
+    for t0 in range(0, sq + pad, 128):
+        row0 = t0 - pad
+        n = -(-sk // 64)
+        if causal:
+            lim = row0 + 127 + off
+            n = 0 if lim < 0 else min(n, lim // 64 + 1)
+        qt = qp[:, :, t0:t0 + 128]
+        rows = torch.arange(row0, row0 + 128)[:, None]
+        m = torch.full(qt.shape[:3] + (1,), -1e30)
+        l = torch.zeros(qt.shape[:3] + (1,))
+        acc = torch.zeros(qt.shape)
+        for k0 in range(0, 64 * n, 64):
+            kt, vt = k[:, :, k0:k0 + 64], v[:, :, k0:k0 + 64]
+            x = _split_product(qt, kt.transpose(-1, -2), passes) * scale
+            if causal:
+                cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+                x = x.masked_fill(cols > rows + off, -1e30)
+            mx = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp(m - mx)
+            p = torch.exp(x - mx)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + _split_product(p, vt, passes)
+            m = mx
+        out[:, :, max(row0, 0):row0 + 128] = (acc / l.clamp_min(1e-30))[:, :, max(-row0, 0):]
+    return out
+
+
+def _f32_err(got, q, k, v, causal, rows=slice(None)):
+    """Largest |got - want| over ``rows``, want the JAX float32 oracle."""
+    from repro.kernels.flash_attention import attention_ref as jref
+
+    rep = q.shape[1] // k.shape[1]
+    want = np.asarray(jref(*(jnp.asarray(t.numpy()) for t in (
+        q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1))), causal=causal))
+    return float(np.max(np.abs(got.numpy()[:, :, rows] - want[:, :, rows])))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal",
+                         SHAPES + [(1, 4, 2, 1024, 1024, 128, True)])   # GQA, sixteen key tiles
+def test_split_tf32_within_reference_tolerance(rng, b, hq, hkv, sq, sk, d, causal):
+    """Three TF32 passes carry about 21 bits of each product: an emulation
+    of the float32 kernel's rounding lies within the reference's 2e-5 of
+    the JAX float32 oracle at the reference's shapes and at a GQA shape of
+    sixteen key tiles, the bound ``tests/test_torch_cuda.py`` and
+    ``chip_smoke.py`` hold the kernel to."""
+    q, k, v = map(torch.from_numpy, _qkv(rng, b, hq, hkv, sq, sk, d))
+    assert _f32_err(_emulate_split_tf32(q, k, v, causal), q, k, v, causal) < 2e-5
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_split_tf32_tolerance_needs_the_split(rng, passes):
+    """The 2e-5 is not vacuous: plain TF32 (one pass, about 11 bits of each
+    operand) breaks it at (1, 4, 2, 1024, 1024, 128), and so does the split
+    with one of its two small terms dropped."""
+    q, k, v = map(torch.from_numpy, _qkv(rng, 1, 4, 2, 1024, 1024, 128))
+    assert _f32_err(_emulate_split_tf32(q, k, v, True, passes=passes), q, k, v, True) > 2e-5
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [(1, 2, 2, 200, 128, 64), (1, 4, 2, 300, 128, 128)])
+def test_split_tf32_rows_without_keys_match_tpu_kernel(rng, b, hq, hkv, sq, sk, d):
+    """Causal, Sq > Sk: rows r < Sq - Sk see no key. With Sk % 128 == 0 the
+    float32 kernel's query tiles put them all in tiles it skips whole, so
+    they come out exactly 0, as through the reference's Pallas kernel
+    (interpret mode); the other rows lie within 2e-5 of it."""
+    q, k, v = map(torch.from_numpy, _qkv(rng, b, hq, hkv, sq, sk, d))
+    got = _emulate_split_tf32(q, k, v, True).numpy()
+    want = np.asarray(jattention(*map(jnp.asarray, (q.numpy(), k.numpy(), v.numpy())),
+                                 causal=True, use_pallas=True))
+    dark = sq - sk
+    assert np.all(got[:, :, :dark] == 0) and np.all(want[:, :, :dark] == 0)
+    assert float(np.max(np.abs(got[:, :, dark:] - want[:, :, dark:]))) < 2e-5

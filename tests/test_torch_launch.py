@@ -66,8 +66,7 @@ def test_cli_mesh_clamps_to_world(tmp_path, args):
 
 
 def test_cli_feed_tokens_match_reference_feed(tmp_path):
-    """The CLI's feed reads with the tokenizer's box (kernel 2 refines each
-    shard read on the card); the reference's reads with none. Over a
+    """The CLI's feed reads with no box, as the reference's does. Over a
     two-file Porto lake, a pass and a half of its trips, both give the same
     token batches."""
     import glob
@@ -85,7 +84,7 @@ def test_cli_feed_tokens_match_reference_feed(tmp_path):
         write_file(str(tmp_path / f"part{seed}.spqf"),
                    columns=porto_taxi_like(n_traj=200, seed=seed), sort="hilbert", device="cpu")
     mine = trajectory_batcher(str(tmp_path), seq=64, global_batch=4, device="cpu")
-    assert mine.bbox == mine.tok.bbox
+    assert mine.bbox is None
     files = sorted(glob.glob(str(tmp_path / "*.spqf")))
     theirs = JBatcher(files, JTokenizer(J_BBOX, order=6), seq_len=64, global_batch=4)
     for i, (a, b) in enumerate(zip(mine, theirs)):
@@ -93,3 +92,46 @@ def test_cli_feed_tokens_match_reference_feed(tmp_path):
         if i == 150:
             break
     assert i == 150
+
+
+@pytest.mark.parametrize("lake", ["porto_and_roads_files", "dataset_outside_the_box"])
+def test_cli_feed_reads_trips_outside_the_box(tmp_path, lake):
+    """Trips outside the tokenizer's box are tokenized onto its edge cells,
+    as the reference's feed does, not dropped: over one Porto file and one
+    ``roads_like`` file (whose roads lie outside the Porto box) the CLI's
+    feed gives the reference's 30 batches token for token, and over a
+    dataset whose every shard misses the box it gives the reference's
+    batches instead of raising."""
+    import glob
+
+    import numpy as np
+    pytest.importorskip("jax")
+    from repro.data.pipeline import TrajectoryBatcher as JBatcher
+    from repro.data.synthetic import PORTO_BBOX as J_BBOX
+    from repro.data.tokenizer import GeoTokenizer as JTokenizer
+    from repro_torch.core.writer import write_file
+    from repro_torch.data.synthetic import porto_taxi_like, roads_like
+    from repro_torch.dataset import write_dataset
+    from repro_torch.launch.train import trajectory_batcher
+
+    if lake == "porto_and_roads_files":
+        write_file(str(tmp_path / "a_porto.spqf"), columns=porto_taxi_like(n_traj=60),
+                   sort="hilbert", device="cpu")
+        write_file(str(tmp_path / "b_roads.spqf"), columns=roads_like(n_roads=60),
+                   sort="hilbert", device="cpu")
+        root, sources = str(tmp_path), sorted(glob.glob(str(tmp_path / "*.spqf")))
+    else:
+        root = str(tmp_path / "roads")
+        write_dataset(root, columns=roads_like(n_roads=60), sort="hilbert", n_shards=2,
+                      device="cpu")
+        sources = [root]
+    feeds = (trajectory_batcher(root, seq=32, global_batch=4, device="cpu"),
+             JBatcher(sources, JTokenizer(J_BBOX, order=6), seq_len=32, global_batch=4))
+    for feed in feeds:
+        feed.loop = False   # one pass through the data
+    mine, theirs = ([b["tokens"] for b in feed] for feed in feeds)
+    if lake == "porto_and_roads_files":
+        assert len(theirs) == 30
+    assert len(mine) == len(theirs) > 0
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        assert np.array_equal(a, b), i
