@@ -195,6 +195,21 @@ paths (``launches_mesh`` on the kernel lines):
     and bytes counted on one device on fake tensors, the bound at the card's
     peaks over the measured step time.
 
+Last, phase 4f, the examples, every count set to 0 just before each
+example (``launches_examples`` on the kernel lines, summed over the six):
+
+4f. each twin under ``examples/torch/`` (quickstart, trace_scan,
+    serve_queries, spatial_analytics, train_trajectory_lm, serve_lm) run in
+    this process as ``__main__`` at the reference examples' defaults with
+    ``--device cuda``, its working and temporary directory a fresh one
+    removed after it (see :func:`examples_path`). Each must exit normally;
+    the four data examples must launch kernel 1, the three with
+    ``refine=True`` scans kernel 2, and print the same facts (timings and
+    paths masked, :func:`example_facts`) as the same example run with
+    ``--device host``, which must launch nothing; trace_scan's exported
+    ``scan_trace.json`` must hold a ``device.*`` span; train_trajectory_lm
+    asserts its own falling loss; serve_lm must answer its 8 requests.
+
 Every line is one JSON object (the training loop's own log lines go to
 standard error). The kernel names are printed early under
 ``kernel_names``, so the only line keyed ``kernels`` is the per-kernel
@@ -279,6 +294,12 @@ MESH_STEPS, MESH_CKPT_EVERY, MESH_TIMED_STEPS = 20, 10, 10
 MESH_CHILD_TIMEOUT = 300
 DRYRUN_CELLS = (("train_4k", "calibrated"), ("decode_32k", "direct"))
 DRYRUN_TIMEOUT = 900
+# Phase 4f: the six example twins under examples/torch/ at the reference's defaults
+EXAMPLES = ("quickstart", "trace_scan", "serve_queries", "spatial_analytics",
+            "train_trajectory_lm", "serve_lm")
+DATA_EXAMPLES = EXAMPLES[:4]                     # held against their --device host runs
+REFINE_EXAMPLES = ("trace_scan", "serve_queries", "spatial_analytics")   # refine=True scans
+SERVE_LM_REQUESTS = 8                            # examples/serve_lm.py's --requests default
 DEVICE = "cuda"
 
 
@@ -2524,7 +2545,8 @@ def dryrun_child() -> int:
     from repro_torch.launch.dryrun import fake_group, one_device_counts, run_cell
     from repro_torch.launch.mesh import production_shape
 
-    keep = ("chips", "counting", "compile_s", "sharding_fallbacks", "memory", "cost_raw",
+    keep = ("chips", "counting", "compile_s", "sharding_fallbacks", "memory",
+            "memory_categories", "cost_raw",
             "collectives", "roofline", "model_flops_global", "model_flops_per_chip",
             "useful_flops_ratio")
     out = {"cells": {}}
@@ -2785,6 +2807,7 @@ def mesh_path(args, lake: Path, work: Path, counters, trn: dict, dry) -> dict:
     for shape, rec in res["cells"].items():
         emit({"roofline_line": {"config": LM_CONFIG, "shape": shape, "mesh": [16, 16],
                                 **rec["roofline"], "memory": rec["memory"],
+                                "memory_categories": rec["memory_categories"],
                                 "useful_flops_ratio": rec["useful_flops_ratio"],
                                 "counting": rec["counting"], "wall_s": rec["wall_s"]}})
         require(rec["roofline"]["bound_s"] > 0 and rec["memory"]["peak_hbm_bytes"] > 0,
@@ -2798,6 +2821,118 @@ def mesh_path(args, lake: Path, work: Path, counters, trn: dict, dry) -> dict:
                           for k, c in res["steps"].items()}
     emit({"roofline_share": out["step_shares"]})
     out["launches"] = {**{k: 0 for k in path}, **sharded["launches"], sm90: path[sm90]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------- examples
+def example_facts(name: str, text: str) -> list[str]:
+    """The facts an example prints, with its timings and paths masked: every
+    line but those of ``trace_scan``, where the stage table, latencies and
+    the kernel line are timings or device-specific and only the scan line and
+    the pruned bytes per level are facts."""
+    import re
+
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    if name == "trace_scan":
+        lines = [ln for ln in lines if ln.startswith(("scan:", "bytes pruned"))]
+    return [re.sub(r"(?<![\w.])/\S+", "<path>",
+                   re.sub(r"\s*\d+(?:\.\d+)?\s?ms\b", " <t>ms", ln)) for ln in lines]
+
+
+def run_example(name: str, argv: list[str], work: Path) -> dict:
+    """Run ``examples/torch/<name>.py`` in this process as ``__main__`` with
+    ``sys.argv`` set, its working directory and temporary directory a fresh
+    one under ``work`` (removed after). Returns its standard output (also
+    copied to standard error for the log), wall seconds and, for
+    ``trace_scan``, the names of the spans in the trace it exported."""
+    import contextlib
+    import io
+    import os
+    import runpy
+    import shutil
+
+    script = ROOT / "examples" / "torch" / f"{name}.py"
+    tmp = Path(tempfile.mkdtemp(prefix=f"{name}_", dir=work))
+    saved = (sys.argv, os.getcwd(), tempfile.tempdir, os.environ.get("TMPDIR"))
+    buf = io.StringIO()
+    sys.argv = [str(script), *argv]
+    os.chdir(tmp)
+    tempfile.tempdir = os.environ["TMPDIR"] = str(tmp)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(script), run_name="__main__")
+        wall = time.perf_counter() - t0
+        spans = None
+        if name == "trace_scan":
+            trace = json.loads((tmp / "scan_trace.json").read_text())
+            spans = sorted({e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"})
+    finally:
+        sys.argv, cwd, tempfile.tempdir, old_tmp = saved
+        os.chdir(cwd)
+        if old_tmp is None:
+            os.environ.pop("TMPDIR", None)
+        else:
+            os.environ["TMPDIR"] = old_tmp
+        sys.stderr.write(f"--- examples/torch/{name}.py {' '.join(argv)}\n{buf.getvalue()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"stdout": buf.getvalue(), "wall_s": wall, "spans": spans}
+
+
+def examples_path(work: Path, counters) -> dict:
+    """Phase 4f: the six example twins (``examples/torch/``) at the
+    reference examples' defaults with ``--device cuda``, in this process,
+    every launch count set to 0 just before each; the four data examples
+    again with ``--device host`` (the numpy path), whose facts must equal
+    the card's as text (timings and paths masked)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out: dict = {"by_example": {}}
+    total = {c.kname: 0 for c in counters}
+    for name in EXAMPLES:
+        for c in counters:
+            c.launches = 0
+        run = run_example(name, ["--device", DEVICE], work)
+        launches = _counts(counters)
+        for k, v in launches.items():
+            total[k] += v
+        row = {"wall_s": run["wall_s"], "launches": launches}
+        if name in DATA_EXAMPLES:
+            for c in counters:
+                c.launches = 0
+            host = run_example(name, ["--device", "host"], work)
+            require(not any(_counts(counters).values()),
+                    f"examples/torch/{name}.py --device host launched a kernel")
+            got, want = example_facts(name, run["stdout"]), example_facts(name, host["stdout"])
+            row.update(host_wall_s=host["wall_s"], facts=got)
+            require(got and got == want,
+                    f"examples/torch/{name}.py: the card's facts {got} differ from the "
+                    f"host's {want}")
+            require(launches[FILE_KERNELS[0]] > 0,
+                    f"examples/torch/{name}.py did not launch kernel 1")
+        if name in REFINE_EXAMPLES:
+            require(launches[FILE_KERNELS[1]] > 0,
+                    f"examples/torch/{name}.py did not launch kernel 2")
+        if name == "trace_scan":
+            row["trace_spans"] = run["spans"]
+            require(any(n.startswith("device.") for n in run["spans"]),
+                    f"scan_trace.json holds no device.* span: {run['spans']}")
+            row["kernel_line"] = next(ln for ln in run["stdout"].splitlines()
+                                      if ln.startswith("kernels:"))
+        if name == "train_trajectory_lm":
+            row["loss_line"] = next(ln for ln in run["stdout"].splitlines()
+                                    if ln.startswith("[train] loss"))
+        if name == "serve_lm":
+            served = next(ln for ln in run["stdout"].splitlines() if ln.startswith("[serve]"))
+            row["serve_line"] = served
+            require(int(served.split()[1]) == SERVE_LM_REQUESTS,
+                    f"examples/torch/serve_lm.py answered {served}")
+        out["by_example"][name] = row
+        emit({"example": {"name": name, **row}})
+        torch.cuda.empty_cache()
+    out["launches"] = total
     out["wall_s"] = time.perf_counter() - t_phase
     return out
 
@@ -2916,6 +3051,11 @@ def main() -> int:
         # phase 4e: the mesh, every count set to 0 just before each of its paths
         msh = mesh_path(args, lake, Path(tmp), counters, trn, dry)
         emit({"mesh_path": {"wall_s": msh["wall_s"], "launches": msh["launches"]}})
+        # phase 4f: the example twins, every count set to 0 just before each
+        exm = examples_path(Path(tmp), counters)
+        emit({"examples": {"wall_s": exm["wall_s"], "launches": exm["launches"],
+                           **{n: {"wall_s": r["wall_s"], "launches": r["launches"]}
+                              for n, r in exm["by_example"].items()}}})
     launches = {**{n: main["launches"][n] for n in FILE_KERNELS},
                 **{n: codec_launches[n] for n in CODEC_KERNELS},
                 **{n: lm["launches"][n] + fam["launches"][n] for n in LM_KERNELS},
@@ -2926,6 +3066,7 @@ def main() -> int:
     launches_4c = {n: fam["launches"][n] for n in launches}
     launches_train = {n: trn["launches"][n] for n in launches}
     launches_mesh = {n: msh["launches"].get(n, 0) for n in launches}
+    launches_examples = {n: exm["launches"][n] for n in launches}
     for row in table:
         emit({"kernel": row["name"], "mismatches": row["mismatches"],
               "kernel_ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
@@ -2935,6 +3076,7 @@ def main() -> int:
               "launches_families": launches_4c[row["name"]],
               "launches_train": launches_train[row["name"]],
               "launches_mesh": launches_mesh[row["name"]],
+              "launches_examples": launches_examples[row["name"]],
               "shape": row["shape"], "bytes": row["bytes"],
               **({"serve_shape": serve_shape[row["name"]]}
                  if row["name"] in serve_shape else {})})
@@ -2953,6 +3095,7 @@ def main() -> int:
                        "launches_families": launches_4c[r["name"]],
                        "launches_train": launches_train[r["name"]],
                        "launches_mesh": launches_mesh[r["name"]],
+                       "launches_examples": launches_examples[r["name"]],
                        **({"bound_detail": r["bound_detail"]} if "bound_detail" in r else {}),
                        **({"serve_shape": {k: serve_shape[r["name"]][k]
                                            for k in ("ms", "device_ms", "bound_ms")}}

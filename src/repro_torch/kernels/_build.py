@@ -7,6 +7,15 @@ the flags, so an edited source rebuilds and an unchanged one loads as is.
 Nothing is built at import time: the first launch of a kernel builds its
 library, and :func:`build_all` builds several at once (one ``nvcc`` process
 per source, all started together).
+
+Builds are observable as the reference's ``jit`` compiles are
+(``repro/kernels/fp_delta/ops.py::_aot``): while tracing is on, each
+``nvcc`` run is a ``kernel.build`` span (cat ``build``) and counts
+``kernel.builds``; opening a library already in ``build/`` counts
+``kernel.loads``; an :func:`entry` lookup served from the cache counts
+``kernel.cache_hits`` (one a launch, two for the page-stream decode, which
+also asks for its scratch size). :func:`compile_cache_stats` lists what is
+loaded.
 """
 
 from __future__ import annotations
@@ -17,7 +26,10 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -49,11 +61,8 @@ def _lib_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start ``nvcc`` for one source; returns (process, tmp path, final path)
-    or None when the library is already built."""
+    """Start ``nvcc`` for one source; returns (process, tmp path, final path)."""
     out = _lib_path(name)
-    if out.exists():
-        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -71,13 +80,23 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
-def build_all(names) -> None:
-    """Build every named library that is missing, all ``nvcc`` runs at once."""
+def _build_one(name: str) -> None:
+    """Run ``nvcc`` for one source inside a ``kernel.build`` span."""
+    with obs.span("kernel.build", cat="build", source=name):
+        obs.count("kernel.builds")
+        _finish(name, _start(name))
+
+
+def build_all(names) -> list[str]:
+    """Build every named library that is missing, all ``nvcc`` runs at once
+    (a thread waits on each); returns the names it built."""
     with _lock:
-        jobs = {n: _start(n) for n in names}
-        for n, job in jobs.items():
-            if job is not None:
-                _finish(n, job)
+        missing = [n for n in dict.fromkeys(names) if not _lib_path(n).exists()]
+        if missing:
+            with ThreadPoolExecutor(len(missing)) as pool:
+                for f in [obs.submit(pool, _build_one, n) for n in missing]:
+                    f.result()
+    return missing
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -85,12 +104,14 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    build_all([name])
+    built = build_all([name])
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
+            if not built:
+                obs.count("kernel.loads")
     return lib
 
 
@@ -98,12 +119,22 @@ def entry(name: str, fn_name: str, argtypes, restype=ctypes.c_int):
     """The C entry point ``fn_name`` of ``csrc/<name>.cu`` with its signature
     set, once: a wrapper called per page or per request pays a dict lookup."""
     fn = _entries.get((name, fn_name))
-    if fn is None:
-        fn = getattr(load(name), fn_name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-        _entries[(name, fn_name)] = fn
+    if fn is not None:
+        obs.count("kernel.cache_hits")
+        return fn
+    fn = getattr(load(name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    _entries[(name, fn_name)] = fn
     return fn
+
+
+def compile_cache_stats() -> dict:
+    """What is loaded: each library (``<name>``) and each entry point set
+    up (``<name>:<function>``), the counterpart of the reference's
+    compiled-bucket listing."""
+    keys = sorted(list(_libs) + [f"{n}:{f}" for n, f in _entries])
+    return {"count": len(keys), "keys": keys}
 
 
 def check(lib: ctypes.CDLL, prefix: str, err: int, what: str) -> None:

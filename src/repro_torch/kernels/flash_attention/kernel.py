@@ -90,16 +90,13 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-    lib = _build.load("flash_attention")
-    fn = lib.fa_forward
-    fn.argtypes = [_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_LL] * 12 + [
-        ctypes.c_float, ctypes.c_int, _P]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("flash_attention", "fa_forward", [_P, _P, _P, _P] + [ctypes.c_int] * 6
+                      + [_LL] * 12 + [ctypes.c_float, ctypes.c_int, _P])
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d, b, hq, hkv, sq, sk,
              *strides, float(sm_scale), int(bool(causal)),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "fa", err, "flash_attention launch")
+    _build.check(_build.load("flash_attention"), "fa", err, "flash_attention launch")
     _build.bump(flash_attention_f32)
     return out
 
@@ -124,16 +121,14 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-    lib = _build.load("flash_attention_sm90")
-    fn = lib.fa90_forward
-    fn.argtypes = [_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_LL] * 9 + [
-        ctypes.c_float, ctypes.c_int, _P]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("flash_attention_sm90", "fa90_forward", [_P, _P, _P, _P]
+                      + [ctypes.c_int] * 6 + [_LL] * 9 + [ctypes.c_float, ctypes.c_int, _P])
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d, b, hq, hkv, sq, sk,
              *strides, float(sm_scale), int(bool(causal)),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "fa90", err, "flash_attention_sm90 launch")
+    _build.check(_build.load("flash_attention_sm90"), "fa90", err,
+                 "flash_attention_sm90 launch")
     _build.bump(flash_attention_sm90)
     return out
 

@@ -154,9 +154,40 @@ def _run_step(cfg, shape: ShapeConfig, mesh) -> dict:
         counter = StepCounter(fake_mode)
         with tracker, counter:
             step(*state)
-        peak = max(v.get("Total", 0) for v in tracker.get_tracker_snapshot("peak").values())
-    return {"counter": counter, "peak": peak, "secs": secs,
-            "fallbacks": sharding_fallbacks(cfg, specs, mesh)}
+        snap = max(tracker.get_tracker_snapshot("peak").values(),
+                   key=lambda v: v.get("Total", 0))
+        categories = {getattr(k, "value", str(k)): float(v) for k, v in snap.items()
+                      if k != "Total"}
+        held = {"parameters": _local_bytes(state[0]),
+                ("optimizer_state" if shape.kind == "train" else "inputs"): _local_bytes(state[1])}
+    return {"counter": counter, "peak": snap.get("Total", 0), "categories": categories,
+            "held": held, "secs": secs, "fallbacks": sharding_fallbacks(cfg, specs, mesh)}
+
+
+def _local_bytes(tree) -> float:
+    """Bytes of a tree's tensors on this rank (a DTensor's local shard)."""
+    total = 0
+    for t in tree_leaves({"t": tree}):
+        if torch.is_tensor(t):
+            t = t.to_local() if hasattr(t, "to_local") else t
+            total += t.numel() * t.element_size()
+    return float(total)
+
+
+def memory_categories(by_tracker: dict, held: dict) -> dict:
+    """The peak split by ``MemTracker``'s own categories (``tracker``: they
+    sum to the peak), beside the local bytes of the leaves handed to its
+    ``track_external`` (``held``: parameters and optimizer state, or the
+    step's inputs). The tracker files those under ``Other``; a DTensor
+    wrapper has no storage of its own, so on a mesh it counts them as 0 and
+    the rank holds ``peak_plus_held_bytes``. The port's model is no
+    ``nn.Module`` and its optimizer no ``torch.optim``: what the step
+    allocates is ``Activation`` in the forward and ``Temp`` in the backward
+    (parameter gradients included)."""
+    other = by_tracker.get("Other", 0.0)
+    return {"tracker": {k: v for k, v in by_tracker.items() if v}, "held": held,
+            "held_in_peak": other,
+            "peak_plus_held_bytes": sum(by_tracker.values()) - other + sum(held.values())}
 
 
 def sharding_fallbacks(cfg, specs: dict, mesh) -> list[str]:
@@ -199,6 +230,8 @@ def _totals(run: dict) -> dict:
            "coll_ring": sum(c["ring_bytes"] for c in coll.values()),
            "coll_raw": sum(c["raw_bytes"] for c in coll.values()),
            "peak": float(run["peak"])}
+    out.update({f"mem:tracker:{k}": v for k, v in run["categories"].items()})
+    out.update({f"mem:held:{k}": v for k, v in run["held"].items()})
     for kind, c in coll.items():
         out.update({f"{kind}.{k}": float(v) for k, v in c.items()})
     return out
@@ -298,9 +331,13 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, counting: str = "di
         rec["sharding_fallbacks"] = sharding_fallbacks(cfg, input_specs(cfg, shape, mesh=mesh),
                                                        mesh)
         peak = full["peak"]
+        mem = {"tracker": {}, "held": {}}
         coll = {}
         for k, v in full.items():
-            if "." in k:
+            if k.startswith("mem:"):
+                _, part, name = k.split(":")
+                mem[part][name] = v
+            elif "." in k:
                 kind, field = k.split(".")
                 coll.setdefault(kind, {})[field] = int(round(v)) if field == "count" else v
         rec["cost_raw"] = {"flops": corrected.flops, "bytes": corrected.bytes,
@@ -312,6 +349,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, counting: str = "di
         rec["compile_s"] = run["secs"]
         rec["sharding_fallbacks"] = run["fallbacks"]
         peak = run["peak"]
+        mem = {"tracker": run["categories"], "held": run["held"]}
         rec["cost_raw"] = cost_metrics(run["counter"])
         coll = collectives_from_trace(run["counter"].collectives)
         direct = Corrected(**{k: v for k, v in _totals(run).items()
@@ -322,6 +360,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, counting: str = "di
             rec["calibration"] = {**detail, "corrected": dataclasses.asdict(corrected),
                                   "flops_vs_direct": corrected.flops / max(direct.flops, 1.0)}
     rec["memory"] = memory_metrics(peak)
+    rec["memory_categories"] = memory_categories(mem["tracker"], mem["held"])
     rec["collectives"] = coll
     rec["corrected"] = dataclasses.asdict(direct)
     print(f"    traced {rec['compile_s']:.1f}s; memory: {rec['memory']}")
@@ -373,8 +412,10 @@ def main():
 
     if args.all:
         failures = []
+        pods = ((False,) if args.single_pod else (True,) if args.multi_pod
+                else (False, True))
         for arch, shape_name, ok in runnable_cells():
-            for mp in (False, True):
+            for mp in pods:
                 path = cell_path(arch, shape_name, mp, args.tag)
                 if os.path.exists(path) and not args.force:
                     continue

@@ -1030,3 +1030,45 @@ def test_checkpoint_from_card_restores_bit_equal(card, tmp_path):
         assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype, k
         a, b = got[k].view(iv[got[k].element_size()]), want[k].view(iv[want[k].element_size()])
         assert torch.equal(a, b), k
+
+
+def test_build_span_and_counters_on_a_real_build(card, tmp_path, monkeypatch, rng):
+    """A real ``nvcc`` build of ``page_minmax.cu`` into an empty build
+    directory, traced: one ``kernel.build`` span and ``kernel.builds == 1``;
+    the same library opened again as a new process would count a load and
+    no build; each launch's entry lookup counts ``kernel.cache_hits`` and
+    ``compile_cache_stats()`` does not grow on repeated launches."""
+    from repro_torch import obs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fp_delta import compile_cache_stats
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_entries", {})
+    x = torch.from_numpy(rng.normal(size=4096).astype(np.float32)).to(card)
+    bounds = torch.tensor([0, 1000, 4096], dtype=torch.int64, device=card)
+    tracer = obs.enable()
+    try:
+        def counts():
+            c = obs.snapshot()["counters"]
+            return [c.get(f"kernel.{k}", 0) for k in ("builds", "loads", "cache_hits")]
+
+        _build.load("page_minmax")
+        spans = tracer.spans("kernel.build")
+        assert [(s["cat"], s["args"]["source"]) for s in spans] == [("build", "page_minmax")]
+        assert counts() == [1, 0, 0]
+        _build._libs.clear()
+        _build.load("page_minmax")
+        assert counts() == [1, 1, 0]
+        want = mref.page_minmax_ref(x.cpu(), bounds.cpu())
+        got = mkernel.page_minmax(x, bounds)
+        n = compile_cache_stats()["count"]
+        for _ in range(3):
+            got = mkernel.page_minmax(x, bounds)
+        assert counts() == [1, 1, 3] and compile_cache_stats()["count"] == n
+        assert "page_minmax:pmm_page_minmax" in compile_cache_stats()["keys"]
+        assert len(tracer.spans("kernel.build")) == 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+    finally:
+        obs.disable()

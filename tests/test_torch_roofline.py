@@ -189,3 +189,47 @@ def test_report_tables_equal_reference():
     new[("qwen3-8b", "train_4k", "pod1")]["roofline"]["compute_s"] = 1.0e-3
     cells = [("qwen3-8b", "train_4k"), ("granite-20b", "decode_32k")]
     assert report.diff_table(recs, new, cells) == jreport.diff_table(recs, new, cells)
+
+
+_DRYRUN_MEMORY = """
+import json
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.dryrun import fake_group, run_cell
+from repro_torch.launch.mesh import MeshShape
+
+cfg = get_config("internlm2-1.8b").reduced()
+shape = ShapeConfig("tiny_train", 64, 8, "train")
+out = {}
+with fake_group(4):
+    for counting in ("direct", "calibrated"):
+        out[counting] = run_cell("internlm2-1.8b", "tiny_train", multi_pod=False, cfg=cfg,
+                                 shape=shape, mesh_shape=MeshShape(("data", "model"), (2, 2)),
+                                 counting=counting)
+print("RESULT", json.dumps(out))
+"""
+
+
+def test_dry_run_splits_the_peak_by_category():
+    """``memory_categories`` beside ``memory``: MemTracker's own categories
+    at the peak sum to the peak; the parameters and optimizer state handed
+    to it are reported apart (on a mesh it counts their DTensor wrappers as
+    0 bytes); the L-sweep extrapolates them like the peak."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(_DRYRUN_MEMORY)],
+                       capture_output=True, text=True, env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    recs = json.loads(r.stdout.split("RESULT ", 1)[1])
+    for counting, rec in recs.items():
+        peak, cats = rec["memory"]["peak_hbm_bytes"], rec["memory_categories"]
+        assert set(rec["memory"]) == {"peak_hbm_bytes", "hbm_bytes", "fits"}
+        assert sum(cats["tracker"].values()) == pytest.approx(peak, rel=1e-9, abs=2), counting
+        assert {"Activation", "Temp"} <= set(cats["tracker"]), cats      # forward, backward
+        assert set(cats["held"]) == {"parameters", "optimizer_state"}
+        assert cats["held"]["parameters"] > 0
+        assert cats["held"]["optimizer_state"] == pytest.approx(
+            2 * cats["held"]["parameters"], rel=0.01)                     # AdamW's mu and nu
+        assert cats["held_in_peak"] == 0                                  # DTensor wrappers
+        assert cats["peak_plus_held_bytes"] == pytest.approx(
+            peak + sum(cats["held"].values()), rel=1e-9, abs=2)
+    assert recs["calibrated"]["memory_categories"]["held"]["parameters"] == pytest.approx(
+        recs["direct"]["memory_categories"]["held"]["parameters"], rel=1e-6)
