@@ -188,9 +188,10 @@ paths (``launches_mesh`` on the kernel lines):
     logits against the unsharded call's and the next tokens equal; kernel 6
     launches once per layer in each, inside ``local_map``;
     (c) the dry run (``repro_torch.launch.dryrun``) of qwen3-8b ``train_4k``
-    (calibrated from one and two layers) and ``decode_32k`` (every layer) on
-    a fake group of 256 ranks, (16, 16): their roofline lines. It runs on
-    the CPU in a child process (``--dryrun-child``) started before phase 4c;
+    (calibrated from one and two layers) and ``decode_32k`` (every layer),
+    and of mamba2-130m and minicpm3-4b ``train_4k`` (calibrated), on a fake
+    group of 256 ranks, (16, 16): their roofline lines. It runs on the CPU
+    in a child process (``--dryrun-child``) started before phase 3b;
     (d) the roofline share of phase 4d's two measured steps: their FLOPs
     and bytes counted on one device on fake tensors, the bound at the card's
     peaks over the measured step time.
@@ -288,11 +289,16 @@ TRAIN_WIDE = (32, 512, 5)                        # batch, seq, timed steps of th
 # qwen3-8b trained at published widths: 2 of its 36 layers, train_4k's sequence
 DENSE_TRAIN = (2, 2, 4096, 5)                    # layers, batch, seq, steps
 # The mesh (phase 4e): the training CLI for 20 steps, a checkpoint at 10, on a
-# one-rank NCCL mesh; qwen3-8b at DENSE_TRAIN's cut sharded; the dry run of two
-# qwen3-8b cells on a fake group of 256 ranks, in a child process on the CPU
+# one-rank NCCL mesh; qwen3-8b at DENSE_TRAIN's cut sharded; the dry run of
+# DRYRUN_CELLS on a fake group of 256 ranks, in a child process on the CPU
 MESH_STEPS, MESH_CKPT_EVERY, MESH_TIMED_STEPS = 20, 10, 10
 MESH_CHILD_TIMEOUT = 300
-DRYRUN_CELLS = (("train_4k", "calibrated"), ("decode_32k", "direct"))
+# the dry run's cells (config, shape, counting): qwen3-8b's two, then one cell
+# of each repaired mesh fault, mamba2-130m (a sequence once put on 'model') and
+# minicpm3-4b (40 heads, which 'model' does not divide)
+DRYRUN_CELLS = ((LM_CONFIG, "train_4k", "calibrated"), (LM_CONFIG, "decode_32k", "direct"),
+                ("mamba2-130m", "train_4k", "calibrated"),
+                ("minicpm3-4b", "train_4k", "calibrated"))
 DRYRUN_TIMEOUT = 900
 # Phase 4f: the six example twins under examples/torch/ at the reference's defaults
 EXAMPLES = ("quickstart", "trace_scan", "serve_queries", "spatial_analytics",
@@ -2531,8 +2537,8 @@ def flash_under_grad() -> dict:
 # ---------------------------------------------------------------- the mesh
 def dryrun_child() -> int:
     """Phase 4e (c) and (d)'s counts, on the CPU in a process of its own
-    (``chip_smoke.py --dryrun-child``, started before phase 4c so that it
-    runs beside the card's phases): the dry run of qwen3-8b's
+    (``chip_smoke.py --dryrun-child``, started before phase 3b, the codec,
+    so that it runs beside the card's phases): the dry run of
     ``DRYRUN_CELLS`` on a fake group of 256 ranks, and the FLOPs and bytes
     of phase 4d's two measured steps on one device, counted on fake
     tensors. Its result is the line that starts with ``DRYRUN``."""
@@ -2548,14 +2554,16 @@ def dryrun_child() -> int:
     keep = ("chips", "counting", "compile_s", "sharding_fallbacks", "memory",
             "memory_categories", "cost_raw",
             "collectives", "roofline", "model_flops_global", "model_flops_per_chip",
-            "useful_flops_ratio")
+            "useful_flops_ratio", "whole_flops_share")
     out = {"cells": {}}
+    t_all = time.perf_counter()
     with fake_group(production_shape().size):
-        for shape, counting in DRYRUN_CELLS:
+        for arch, shape, counting in DRYRUN_CELLS:
             t0 = time.perf_counter()
-            rec = run_cell(LM_CONFIG, shape, multi_pod=False, counting=counting)
-            out["cells"][shape] = {**{k: rec[k] for k in keep},
-                                   "wall_s": time.perf_counter() - t0}
+            rec = run_cell(arch, shape, multi_pod=False, counting=counting)
+            out["cells"][f"{arch} {shape}"] = {**{k: rec[k] for k in keep},
+                                               "wall_s": time.perf_counter() - t0}
+    out["cells_wall_s"] = time.perf_counter() - t_all
     vocab = GeoTokenizer(PORTO_BBOX, order=6).vocab        # the training CLI's
     spatial = dataclasses.replace(get_config("spatial-lm"), vocab=vocab)
     layers, b, s, _ = DENSE_TRAIN
@@ -2803,15 +2811,20 @@ def mesh_path(args, lake: Path, work: Path, counters, trn: dict, dry) -> dict:
     text = log.read_text()
     require(rc == 0, f"the dry run failed:\n{text[-3000:]}")
     res = json.loads(next(ln for ln in text.splitlines() if ln.startswith("DRYRUN "))[7:])
-    out["dryrun"] = {**res["cells"], "waited_s": time.perf_counter() - t0}
-    for shape, rec in res["cells"].items():
-        emit({"roofline_line": {"config": LM_CONFIG, "shape": shape, "mesh": [16, 16],
+    out["dryrun"] = {**res["cells"], "cells_wall_s": res["cells_wall_s"],
+                     "waited_s": time.perf_counter() - t0}
+    for cell, rec in res["cells"].items():
+        arch, shape = cell.split()
+        emit({"roofline_line": {"config": arch, "shape": shape, "mesh": [16, 16],
                                 **rec["roofline"], "memory": rec["memory"],
                                 "memory_categories": rec["memory_categories"],
                                 "useful_flops_ratio": rec["useful_flops_ratio"],
+                                "whole_flops_share": rec["whole_flops_share"],
                                 "counting": rec["counting"], "wall_s": rec["wall_s"]}})
         require(rec["roofline"]["bound_s"] > 0 and rec["memory"]["peak_hbm_bytes"] > 0,
-                f"dry run of {shape}: empty counts")
+                f"dry run of {cell}: empty counts")
+    emit({"dryrun_child": {"cells_wall_s": res["cells_wall_s"],
+                           "waited_s": out["dryrun"]["waited_s"]}})
     # (d) phase 4d's measured steps against their roofline bounds on one card
     dense_s = trn["dense"]["step_s"][1:]
     measured = {"spatial_lm": trn["spatial_lm"]["step_ms"] / 1e3,
@@ -3022,6 +3035,8 @@ def main() -> int:
         feed["wall_s"] = time.perf_counter() - t0
         emit({"feed_path": feed})
         del ds
+        # phase 4e's dry run counts on the CPU beside phases 3b to 4d
+        dry = start_dryrun(Path(tmp))
         t0 = time.perf_counter()
         codec = codec_path(data[0], counters)
         codec["wall_s"] = time.perf_counter() - t0
@@ -3035,8 +3050,6 @@ def main() -> int:
         lm["wall_s"] = time.perf_counter() - t0
         emit({"lm_path": lm})
         table += check_flash(args.seed)
-        # phase 4e's dry run counts on the CPU beside phases 4c and 4d
-        dry = start_dryrun(Path(tmp))
         # phase 4c reads its prompts from the lake of 3a, so it runs before the
         # lake is removed
         t0 = time.perf_counter()

@@ -226,7 +226,8 @@ def _totals(run: dict) -> dict:
     link seconds (keys ``<kind>.<field>``)."""
     counter = run["counter"]
     coll = collectives_from_trace(counter.collectives)
-    out = {"flops": float(counter.flops), "bytes": float(counter.bytes),
+    out = {"flops": float(counter.flops), "whole_flops": float(counter.whole_flops),
+           "bytes": float(counter.bytes),
            "coll_ring": sum(c["ring_bytes"] for c in coll.values()),
            "coll_raw": sum(c["raw_bytes"] for c in coll.values()),
            "peak": float(run["peak"])}
@@ -342,6 +343,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, counting: str = "di
                 coll.setdefault(kind, {})[field] = int(round(v)) if field == "count" else v
         rec["cost_raw"] = {"flops": corrected.flops, "bytes": corrected.bytes,
                            "transcendentals": None}
+        whole = full["whole_flops"]
         rec["calibration"] = {**detail, "corrected": dataclasses.asdict(corrected)}
         direct = corrected
     else:
@@ -351,6 +353,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, counting: str = "di
         peak = run["peak"]
         mem = {"tracker": run["categories"], "held": run["held"]}
         rec["cost_raw"] = cost_metrics(run["counter"])
+        whole = float(run["counter"].whole_flops)
         coll = collectives_from_trace(run["counter"].collectives)
         direct = Corrected(**{k: v for k, v in _totals(run).items()
                               if k in ("flops", "bytes", "coll_ring", "coll_raw")})
@@ -373,11 +376,16 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, counting: str = "di
     rec["model_flops_global"] = mf
     rec["model_flops_per_chip"] = mf / n_ranks
     rec["useful_flops_ratio"] = (mf / n_ranks) / direct.flops if direct.flops else 0.0
+    # the share of the rank's FLOPs that a mesh axis could not split (heads
+    # that 'model' does not divide, computed whole on each of its ranks)
+    rec["whole_flops"] = whole
+    rec["whole_flops_share"] = whole / direct.flops if direct.flops else 0.0
     print(f"    roofline: compute={terms['compute_s']*1e3:.2f}ms "
           f"memory={terms['memory_s']*1e3:.2f}ms "
           f"collective={terms['collective_s']*1e3:.2f}ms "
           f"dominant={terms['dominant']} frac={terms['roofline_fraction']:.2f} "
-          f"useful={rec['useful_flops_ratio']:.2f}", flush=True)
+          f"useful={rec['useful_flops_ratio']:.2f} whole={rec['whole_flops_share']:.2f}",
+          flush=True)
     return rec
 
 

@@ -107,6 +107,51 @@ def multipod_table(recs) -> list[str]:
     return out
 
 
+def cells_table(recs, pod="pod1") -> list[str]:
+    """One row a config, one column a shape: each cell's dominant roofline
+    term, its bound and the rank's peak (decimal GB), as ``PERF.md`` §5
+    tabulates a sweep."""
+    out = ["| Config | " + " | ".join(SHAPE_ORDER) + " |",
+           "| --- |" + " --- |" * len(SHAPE_ORDER)]
+    for arch in ARCH_ORDER:
+        row = []
+        for shape in SHAPE_ORDER:
+            r = recs.get((arch, shape, pod))
+            if r is None:
+                row.append("-")
+            elif r.get("status") == "skipped":
+                row.append("skipped")
+            elif r.get("status") != "ok":
+                row.append("raised")
+            else:
+                t = r["roofline"]
+                row.append(f"{t['dominant']} {t['bound_s']:.4g} s, "
+                           f"{r['memory']['peak_hbm_bytes'] / 1e9:.1f} GB")
+        out.append(f"| {arch} | " + " | ".join(row) + " |")
+    return out
+
+
+def flops_table(recs) -> list[str]:
+    """Each traced cell's useful FLOPs ratio (model FLOPs per rank over the
+    rank's counted FLOPs) and the share of its counted FLOPs that a mesh
+    axis could not split (``whole_flops_share``: heads that 'model' does not
+    divide, computed whole on every rank of it), on both meshes."""
+    out = ["| arch | shape | useful pod1 | whole pod1 | useful pod2 | whole pod2 |",
+           "|---|---|---|---|---|---|"]
+    for arch in ARCH_ORDER:
+        for shape in SHAPE_ORDER:
+            cells = [recs.get((arch, shape, pod)) or {} for pod in ("pod1", "pod2")]
+            if not any(r.get("status") == "ok" for r in cells):
+                continue
+            vals = []
+            for r in cells:
+                ok = r.get("status") == "ok"
+                vals += [f"{r['useful_flops_ratio']:.3f}" if ok else "-",
+                         f"{r.get('whole_flops_share', 0.0):.3f}" if ok else "-"]
+            out.append(f"| {arch} | {shape} | " + " | ".join(vals) + " |")
+    return out
+
+
 def diff_table(base: dict, new: dict, cells: list[tuple[str, str]]) -> list[str]:
     out = [
         "| cell | term | before | after | delta |",
@@ -140,6 +185,11 @@ def main():
     print("\n".join(roofline_table(recs)))
     print("\n# Multi-pod (2x16x16) compile matrix\n")
     print("\n".join(multipod_table(recs)))
+    for pod, name in (("pod1", "single-pod 16x16"), ("pod2", "multi-pod 2x16x16")):
+        print(f"\n# Dominant term, bound and peak per rank ({name})\n")
+        print("\n".join(cells_table(recs, pod)))
+    print("\n# Useful FLOPs and whole-head work per rank\n")
+    print("\n".join(flops_table(recs)))
     if args.diff is not None:
         new = load(args.diff)
         cells = sorted({(a, s) for (a, s, p) in new if p == "pod1"})

@@ -45,6 +45,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from ..sharding.dtensor import whole_work
+
 # NVIDIA H100 SXM5 80 GB, 700 W (data sheet; dense rates)
 PEAK_FLOPS_BF16 = 989e12
 PEAK_FLOPS_F32 = 67e12
@@ -131,6 +133,7 @@ class StepCounter(TorchDispatchMode):
         super().__init__()
         self.fake_mode = fake_mode     # the run's own FakeTensorMode, if it runs on fakes
         self.flops = 0
+        self.whole_flops = 0           # of them, work a mesh axis could not split
         self.bytes = 0
         self.collectives: list[dict] = []
 
@@ -155,7 +158,9 @@ class StepCounter(TorchDispatchMode):
         if func.namespace != "aten":
             return out
         if packet in flop_registry:
-            self.flops += int(flop_registry[packet](*args, **kwargs, out_val=out))
+            f = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops += f
+            self.whole_flops += f if whole_work() else 0
         if not func.is_view and packet not in _NO_BYTES:
             self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
             self.bytes += sum(_nbytes(t) for t in _tensors(out))

@@ -19,7 +19,6 @@ return the same tensors as the new cache.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -28,7 +27,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.flash_attention import attention as flash_attention_op
-from ..sharding.dtensor import BATCH_AXES, axes_placements, is_dtensor, split_ready, write_rows
+from ..sharding.dtensor import (BATCH_AXES, axes_placements, is_dtensor, local_call, merge_ready,
+                                split_ready, write_rows)
 from .layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -122,39 +122,45 @@ def _sdpa_local(q, k, v, *, causal: bool, q_pos=None, k_valid_len=None, impl: st
 
 def _sdpa(q, k, v, *, causal: bool, q_pos=None, k_valid_len=None, impl: str = "ref"):
     """:func:`_sdpa_local`, and on a mesh the same on each rank's own block
-    (``local_map``; the flash kernel takes plain tensors, and the plain
+    (``local_call``; the flash kernel takes plain tensors, and the plain
     version's head grouping has no sharding rule): batch on the batch axes,
     query heads on 'model'. Where the kv heads divide 'model' too they
     shard the same way, and a local query head's kv head is its local index
     over the ratio; where they do not, k and v are gathered whole over
-    'model' (an explicit all-gather) and each rank reads the kv heads of
-    its own query heads. A cache sharded on its sequence (SP decode) stays
-    so: :func:`_sdpa_sequence_parallel`. The output is placed as q is."""
+    'model' (an explicit all-gather), each rank reads the kv heads of its
+    own query heads, and their gradients are summed over 'model'. A cache
+    sharded on its sequence (SP decode) stays so:
+    :func:`_sdpa_sequence_parallel`. The output is placed as q is."""
     kw = dict(causal=causal, k_valid_len=k_valid_len, impl=impl)
     if not is_dtensor(q):
         return _sdpa_local(q, k, v, q_pos=q_pos, **kw)
     if torch.is_tensor(k_valid_len):
         raise NotImplementedError("per-slot valid lengths take a cache on one device")
-    if is_dtensor(k) and any(isinstance(p, Shard) and p.dim == 1 for p in k.placements):
+    if _seq_axes(k):
         return _sdpa_sequence_parallel(q, k, v, causal=causal, q_pos=q_pos,
                                        k_valid_len=k_valid_len)
     mesh = q.device_mesh
     hq, hkv = q.shape[2], k.shape[2]
-    qpl = axes_placements(mesh, q.shape, (BATCH_AXES, None, "model", None))
-    kpl = axes_placements(mesh, k.shape, (BATCH_AXES, None, "model", None))
+    heads = (BATCH_AXES, None, "model", None)
+    qpl = axes_placements(mesh, q.shape, heads)
+    kpl = axes_placements(mesh, k.shape, heads)
     names = mesh.mesh_dim_names
     if "model" in names and qpl[names.index("model")] != kpl[names.index("model")]:
         m = names.index("model")
         kw.update(group=hq // hkv, q_head0=mesh.get_local_rank(m) * (hq // mesh.size(m)))
-    args, in_pl = (q, k, v), [qpl, kpl, kpl]
-    if q_pos is not None:
-        if not is_dtensor(q_pos):
-            q_pos = DTensor.from_local(q_pos, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        args, in_pl = args + (q_pos,), in_pl + [(Replicate(),) * mesh.ndim]
-    fn = functools.partial(_sdpa_local, **kw) if q_pos is None else \
-        (lambda q_, k_, v_, pos_: _sdpa_local(q_, k_, v_, q_pos=pos_, **kw))
-    return local_map(fn, out_placements=[*qpl], in_placements=tuple(in_pl),
-                     device_mesh=mesh, redistribute_inputs=True)(*args)
+    return local_call(lambda q_, k_, v_, pos_: _sdpa_local(q_, k_, v_, q_pos=pos_, **kw),
+                      (q, k, v, q_pos), (heads, heads, heads, ()), heads,
+                      (*q.shape[:3], v.shape[-1]))
+
+
+def _seq_axes(t) -> tuple:
+    """The mesh axes that shard dim 1 of ``t`` (a cache's sequence, SP
+    decode); none for a plain tensor."""
+    if not is_dtensor(t):
+        return ()
+    names = t.device_mesh.mesh_dim_names
+    return tuple(names[i] for i, p in enumerate(t.placements)
+                 if isinstance(p, Shard) and p.dim == 1)
 
 
 def _sdpa_sequence_parallel(q, k, v, *, causal: bool, q_pos=None, k_valid_len=None):
@@ -223,6 +229,12 @@ def _heads(t, h: int, hd: int):
     return split_ready(t, -1, h).reshape(*t.shape[:2], h, hd)
 
 
+def _merge_heads(t):
+    """(B, S, h, hd) -> (B, S, h * hd), the inverse of :func:`_heads`."""
+    b, s, h, hd = t.shape
+    return merge_ready(t.reshape(b, s, h * hd), -1, h)
+
+
 def _update_slots(cache_arr, new, pos):
     """Per-slot cache write, in place: ``new[b]`` lands in ``cache_arr[b]``
     at row offset ``pos[b]`` along axis 1 (continuous batching, where every
@@ -287,7 +299,7 @@ def gqa_forward(cfg, p, x, positions, *, causal=True, cache=None, cache_pos=None
                 q_pos=positions, k_valid_len=(cache_pos + s)[:, None, None],
                 impl="ref",
             )
-            return out.reshape(b, s, hq * hd) @ p["wo"].to(x.dtype), {"k": kc, "v": vc}
+            return _merge_heads(out) @ p["wo"].to(x.dtype), {"k": kc, "v": vc}
         pos0 = int(cache_pos)
         smax = cache["k"].shape[1]
         pos = min(max(pos0, 0), smax - s)   # dynamic_update_slice clamps the offset
@@ -307,7 +319,7 @@ def gqa_forward(cfg, p, x, positions, *, causal=True, cache=None, cache_pos=None
             )
     else:
         out = _sdpa(q, k, v, causal=causal, impl=cfg.attn_impl)
-    return out.reshape(b, s, hq * hd) @ p["wo"].to(x.dtype), new_cache
+    return _merge_heads(out) @ p["wo"].to(x.dtype), new_cache
 
 
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
@@ -355,9 +367,18 @@ def _mla_qkv(cfg, p, x, positions):
 def _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, *, q_pos=None, k_valid_len=None):
     m = cfg.mla
     h = cfg.n_heads
-    b, s = q_nope.shape[:2]
-    kv = _heads(c_kv.to(q_nope.dtype) @ p["wkv_b"].to(q_nope.dtype), h,
-                m.nope_head_dim + m.v_head_dim)
+    c_kv, wkv_b = c_kv.to(q_nope.dtype), p["wkv_b"].to(q_nope.dtype)
+    seq = _seq_axes(c_kv)
+    if seq:
+        # a latent cache sharded on its sequence stays so: each rank expands
+        # its own block of positions with the whole of wkv_b (gathered over
+        # 'model'), and attention runs sequence-parallel
+        rows = (tuple(a for a in BATCH_AXES if a not in seq), seq, None)
+        kv = local_call(torch.matmul, (c_kv, wkv_b), (rows, (None, None)), rows,
+                        (*c_kv.shape[:2], wkv_b.shape[-1]))
+    else:
+        kv = c_kv @ wkv_b
+    kv = _heads(kv, h, m.nope_head_dim + m.v_head_dim)
     k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
     k = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(*k_nope.shape[:3], m.rope_head_dim)],
                   dim=-1)
@@ -365,7 +386,7 @@ def _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, *, q_pos=None, k_valid_len
     # the full-sequence path admits the blocked impl (asymmetric dv)
     impl = cfg.attn_impl if (q_pos is None and k_valid_len is None) else "ref"
     out = _sdpa(q, k, v, causal=True, q_pos=q_pos, k_valid_len=k_valid_len, impl=impl)
-    return out.reshape(b, s, h * m.v_head_dim) @ p["wo"].to(q_nope.dtype)
+    return _merge_heads(out) @ p["wo"].to(q_nope.dtype)
 
 
 def mla_forward(cfg, p, x, positions, *, cache=None, cache_pos=None):
@@ -433,7 +454,7 @@ def cross_attention(cfg, p, x, enc_kv=None, enc_out=None):
     else:
         k, v = enc_kv["k"].to(x.dtype), enc_kv["v"].to(x.dtype)
     out = _sdpa(q, k, v, causal=False, impl="ref")
-    return out.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+    return _merge_heads(out) @ p["wo"].to(x.dtype)
 
 
 def make_cross_kv(cfg, p, enc_out):

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..sharding.dtensor import batch_sum, replicate_dim
+from ..sharding.dtensor import batch_sum, reduce_partial, replicate_dim
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -61,7 +61,9 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    # over a dim sharded on a mesh (the SSM's gated norm) the mean is a
+    # pending partial one: reduced here (an all-reduce of (B, S, 1))
+    var = reduce_partial(torch.mean(xf * xf, dim=-1, keepdim=True))
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(dt)
 

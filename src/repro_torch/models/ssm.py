@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..sharding.dtensor import BATCH_AXES, local_call, split_ready
+from ..sharding.dtensor import BATCH_AXES, local_call, merge_ready, split_ready
 from .layers import dense_init, dtype_of, rms_norm
 
 
@@ -172,7 +172,7 @@ def ssm_forward(cfg, p, x, *, cache=None):
         (heads, heads[:3], ("model",), (BATCH_AXES, None, None), (BATCH_AXES, None, None), state),
         [heads, state], [tuple(xh.shape), (bsz, h, n, s.headdim)])
     y = y + p["D"][None, None, :, None] * xh
-    y = y.reshape(bsz, L, d_inner).to(x.dtype)
+    y = merge_ready(y.reshape(bsz, L, d_inner), -1, h).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(x.dtype)
     if cache is not None:

@@ -14,6 +14,7 @@ use (:func:`axes_placements`, :func:`shard_tensor`, :func:`full`) and
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -70,7 +71,12 @@ def local_call(fn, args: tuple, axes: tuple, out_axes, out_shape):
     several outputs both are lists, one entry per output. Plain tensor
     arguments count as replicated, and ``None`` arguments pass through. The
     backward sums the gradient of an argument that is whole over a mesh dim
-    that splits the work (a partial sum over that dim)."""
+    that splits the work (a partial sum over that dim). Over every mesh dim
+    but the batch axes that sum is made at once, so each argument's
+    gradient leaves with the placements the argument came with: left
+    pending, a partial sum can reach an op that DTensor resolves by
+    scattering it over another dim, such as the sequence. Over the batch
+    axes a weight's partial sums stay pending until the step reduces them."""
     dts = [a for a in args if isinstance(a, DTensor)]
     if not dts:
         return fn(*args)
@@ -79,6 +85,11 @@ def local_call(fn, args: tuple, axes: tuple, out_axes, out_shape):
     mesh = dts[0].device_mesh
     args = tuple(a if a is None or isinstance(a, DTensor)
                  else DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                 for a in args)
+    names = mesh.mesh_dim_names
+    args = tuple(a if a is None or not a.requires_grad else
+                 _Placed.apply(a, a.placements, tuple(None if names[i] in BATCH_AXES else p
+                                                      for i, p in enumerate(a.placements)))
                  for a in args)
     in_pl = tuple(None if a is None else axes_placements(mesh, a.shape, ax)
                   for a, ax in zip(args, axes))
@@ -94,8 +105,66 @@ def local_call(fn, args: tuple, axes: tuple, out_axes, out_shape):
                           for i, p in enumerate(pl)) for pl in in_pl)
     # one output's placements go as a list (a tuple would read as one per output)
     out = tuple(out_pl) if several else list(out_pl[0])
-    return local_map(fn, out_placements=out, in_placements=in_pl, in_grad_placements=grad_pl,
+    # the work is whole where an output cannot split as asked (an argument
+    # gathered whole, such as kv heads, still feeds split work)
+    whole = any(_unsplit(mesh, sh, ax) for sh, ax in
+                (zip(out_shape, out_axes) if several else [(out_shape, out_axes)]))
+
+    def body(*local):
+        local = [_Edge.apply(t, False) if torch.is_tensor(t) and t.requires_grad else t
+                 for t in local]
+        _whole.on = whole
+        try:
+            res = fn(*local)
+        finally:
+            _whole.on = False
+        if not whole:
+            return res
+        return tree_map_only(torch.Tensor, lambda t: _Edge.apply(t, True), res)
+
+    return local_map(body, out_placements=out, in_placements=in_pl, in_grad_placements=grad_pl,
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _unsplit(mesh, shape, axes) -> bool:
+    """Whether ``axes`` asks a mesh axis (of size > 1) to split a dim of
+    ``shape`` that it does not divide, so that the dim stays whole."""
+    pl = axes_placements(mesh, shape, axes)
+    names = mesh.mesh_dim_names
+    return any(n in names and mesh.size(names.index(n)) > 1 and pl[names.index(n)] != Shard(d)
+               for d, a in enumerate(axes) for n in (a if isinstance(a, tuple) else (a,)))
+
+
+_whole = threading.local()    # .on: see whole_work(); per thread, as autograd's grad mode is
+
+
+def whole_work() -> bool:
+    """Whether the ops running now are a :func:`local_call`'s work that a
+    mesh axis it asked to split could not (heads that 'model' does not
+    divide, computed whole on each of its ranks): the call's forward, and
+    its backward from the gradient of its output to those of its arguments
+    (autograd runs a single-threaded backward in the reverse order of the
+    forward). The dry run counts these FLOPs apart."""
+    return getattr(_whole, "on", False)
+
+
+class _Edge(torch.autograd.Function):
+    """The identity at an edge of a :func:`local_call`'s body, on a rank's
+    local tensor. Its backward marks whether the ops that follow are whole
+    work (:func:`whole_work`: ``whole_after``), and hands the gradient on
+    contiguous: ``local_map`` wraps a local gradient with the strides of the
+    argument's global (contiguous) layout, and a permuted one (an einsum's
+    backward hands them out) would then be viewed as if it were contiguous."""
+
+    @staticmethod
+    def forward(ctx, t, whole_after):
+        ctx.whole_after = whole_after
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        _whole.on = ctx.whole_after
+        return g.contiguous(), None
 
 
 def split_ready(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -111,6 +180,30 @@ def split_ready(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
         if isinstance(p, Shard) and p.dim == dim:
             ways *= t.device_mesh.size(i)
     return t if n % ways == 0 else replicate_dim(t, dim)
+
+
+class _MergeReady(torch.autograd.Function):
+    """The identity, whose backward makes its gradient :func:`split_ready`."""
+
+    @staticmethod
+    def forward(ctx, t, dim, n):
+        ctx.dim, ctx.n = dim, n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_ready(g, ctx.dim, ctx.n), None, None
+
+
+def merge_ready(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t``, whose ``dim`` was just merged from ``n`` blocks (heads) by a
+    reshape, as it is; its gradient, which the backward of that reshape
+    splits into ``n`` blocks again, is made :func:`split_ready` first (a
+    row-parallel product hands it back sharded over 'model', which ``n``
+    heads may not divide). The identity on a plain tensor."""
+    if not isinstance(t, DTensor):
+        return t
+    return _MergeReady.apply(t, dim, n)
 
 
 def gather_fsdp(tree):
@@ -130,18 +223,32 @@ def gather_fsdp(tree):
 
 
 class _Placed(torch.autograd.Function):
-    """``t`` redistributed to ``pl``, and its gradient too: the backward
-    brings the incoming gradient to the same placements, pending partial
-    sums reduced, whatever placements it arrives in."""
+    """``t`` redistributed to ``pl``, and its gradient brought to
+    ``grad_pl``, pending partial sums reduced, whatever placements it
+    arrives in. A ``None`` entry of ``grad_pl`` leaves that mesh dim of the
+    gradient as it arrives; a partial one stands for whole."""
 
     @staticmethod
-    def forward(ctx, t, pl):
-        ctx.pl = pl
+    def forward(ctx, t, pl, grad_pl):
+        ctx.grad_pl = grad_pl
         return t.redistribute(t.device_mesh, pl)
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(g.device_mesh, ctx.pl), None
+        pl = tuple(g.placements[i] if p is None else Replicate() if p.is_partial() else p
+                   for i, p in enumerate(ctx.grad_pl))
+        return g.redistribute(g.device_mesh, pl), None, None
+
+
+def reduce_partial(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its pending partial sums or means reduced (an all-reduce),
+    its gradient held whole over the same mesh dims (the gradient of a mean
+    over a sharded dim comes back as a partial sum, which DTensor cannot
+    turn into a partial mean). The identity on a plain tensor."""
+    if not isinstance(t, DTensor) or not any(p.is_partial() for p in t.placements):
+        return t
+    pl = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+    return _Placed.apply(t, pl, pl)
 
 
 def batch_sharded(t: torch.Tensor) -> torch.Tensor:
@@ -156,7 +263,7 @@ def batch_sharded(t: torch.Tensor) -> torch.Tensor:
     if not isinstance(t, DTensor):
         return t
     pl = axes_placements(t.device_mesh, t.shape, (BATCH_AXES,) + (None,) * (t.ndim - 1))
-    return _Placed.apply(t, pl)
+    return _Placed.apply(t, pl, pl)
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
