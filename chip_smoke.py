@@ -161,14 +161,22 @@ timings after (a)'s drill read a batcher of their own, counted apart as
     tokens/s, one step's device split, the checkpoint's ratio and write
     seconds, the feed's stalls, and a step at (32, 512);
     (b) qwen3-8b at its published widths, 2 of its 36 layers, bf16 compute
-    over float32 parameters, ``attn_impl="ref"``: AdamW for 5 steps on one
+    over float32 parameters, ``attn_impl="ref"``, its shipped
+    ``remat="full"``: AdamW for 5 steps on one
     repeated (2, 4096) synthetic batch, accumulated over 2 microbatches of
     one (the config's ``grad_accum`` of 16, clamped to the batch); the loss
     must fall, the first loss lie within phase 4's bf16 noise of a
     float32-compute loss, and the first step's gradient leaves within 2^-4
     (normwise) of float32-compute ones (see :func:`dense_train`); peak
     memory beside its reckoning;
-    (c) a backward through ``attn_impl="flash"`` must raise on the card.
+    (c) internlm2-1.8b as shipped (``remat="full"``, ``"blocked"``
+    attention) at its published widths and full depth, 24 layers: the
+    ``remat`` modes none, full and selective side by side at 4 layers and
+    (1, 4096), gradients equal within the floor of two none runs; then 3
+    AdamW steps on one (2, 4096) batch (2 microbatches of 1), the loss
+    falling and the peak under 80 GB and its reckoning (see
+    :func:`remat_train`);
+    (d) a backward through ``attn_impl="flash"`` must raise on the card.
 
 Then phase 4e, the mesh, every count set to 0 just before each of its
 paths (``launches_mesh`` on the kernel lines):
@@ -192,9 +200,11 @@ paths (``launches_mesh`` on the kernel lines):
     and of mamba2-130m and minicpm3-4b ``train_4k`` (calibrated), on a fake
     group of 256 ranks, (16, 16): their roofline lines. It runs on the CPU
     in a child process (``--dryrun-child``) started before phase 3b;
-    (d) the roofline share of phase 4d's two measured steps: their FLOPs
-    and bytes counted on one device on fake tensors, the bound at the card's
-    peaks over the measured step time.
+    (d) the roofline share of phase 4d's three measured steps (spatial-lm,
+    qwen3-8b at 2 layers, internlm2-1.8b at 24): their FLOPs and bytes
+    counted on one device on fake tensors, the bound at the card's peaks
+    over the measured step time, and the fake tensors' peak beside the
+    card's.
 
 Last, phase 4f, the examples, every count set to 0 just before each
 example (``launches_examples`` on the kernel lines, summed over the six):
@@ -288,6 +298,11 @@ TRAIN_FAIL = (255, 260)                          # injected failure at, then run
 TRAIN_WIDE = (32, 512, 5)                        # batch, seq, timed steps of the wide timing
 # qwen3-8b trained at published widths: 2 of its 36 layers, train_4k's sequence
 DENSE_TRAIN = (2, 2, 4096, 5)                    # layers, batch, seq, steps
+# internlm2-1.8b (arXiv:2403.17297) as shipped (remat "full", "blocked"
+# attention) at full depth and train_4k's sequence, batch cut 256 to 2; the
+# remat modes side by side at 4 of its 24 layers
+REMAT_TRAIN = ("internlm2-1.8b", 2, 4096, 3)     # config, batch, seq, steps
+REMAT_COMPARE = (4, 1, 4096)                     # layers, batch, seq
 # The mesh (phase 4e): the training CLI for 20 steps, a checkpoint at 10, on a
 # one-rank NCCL mesh; qwen3-8b at DENSE_TRAIN's cut sharded; the dry run of
 # DRYRUN_CELLS on a fake group of 256 ranks, in a child process on the CPU
@@ -734,6 +749,41 @@ def mismatches(a, b) -> tuple[int, float]:
     return n, err
 
 
+def segminmax_library_route(bits, x_start, y_start, counts, valid, qkeys, width):
+    """The nearest library route to kernel 2 on its inputs, for its
+    ``library_ms``: a callable that computes the order keys of ``bits``,
+    runs ``scatter_reduce`` with ``amin`` and with ``amax`` (two calls) over
+    them by slot (record, coordinate), and makes the box compare; and what
+    sets it apart from the kernel."""
+    import torch
+
+    from repro_torch.kernels.minmax import ref as mr
+
+    n = counts.shape[0]
+    owner, xpos = mr._ragged_index(x_start, counts)
+    _, ypos = mr._ragged_index(y_start, counts)
+    # positions that belong to no record reduce into a spare slot
+    slot = torch.full((bits.shape[0],), 2 * n, dtype=torch.int64, device=bits.device)
+    slot[xpos] = 2 * owner
+    slot[ypos] = 2 * owner + 1
+    qx0, qx1, qy0, qy1 = (mr._signed(q) for q in qkeys)
+    lo, hi = mr._I64_MIN, mr._I64_MAX
+
+    def route():
+        keys = mr.float_order_keys(bits, width)
+        mn = torch.full((2 * n + 1,), hi, dtype=torch.int64, device=bits.device)
+        mx = torch.full((2 * n + 1,), lo, dtype=torch.int64, device=bits.device)
+        mn = mn.scatter_reduce_(0, slot, keys, "amin")[:-1].view(n, 2)
+        mx = mx.scatter_reduce_(0, slot, keys, "amax")[:-1].view(n, 2)
+        return (valid & (mn[:, 0] <= qx1) & (mx[:, 0] >= qx0)
+                & (mn[:, 1] <= qy1) & (mx[:, 1] >= qy0))
+
+    diff = ("torch scatter_reduce amin and amax over a (record, coordinate) slot index "
+            "built once outside the timing, then the box compare; no NaN fence, no "
+            "(R, 4) min/max output")
+    return route, diff
+
+
 def check_kernels(path: Path, main: dict) -> list[dict]:
     import torch
 
@@ -825,6 +875,13 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
     k_ms = cuda_ms(lambda: mk.segminmax_refine(*rargs))
     k_dev = device_ms(lambda: mk.segminmax_refine(*rargs))
     p_ms = cuda_ms(lambda: mr.segminmax_refine_ref(*rargs), iters=3, warmup=1)
+    lib, lib_diff = segminmax_library_route(*rargs)
+    l_ms = cuda_ms(lib)
+    lib_keep = lib()
+    torch.cuda.synchronize()
+    # the route has no NaN fence: on the Porto stream (no NaN) it keeps what the kernel keeps
+    require(torch.equal(lib_keep.to(torch.int32), mk.segminmax_refine(*rargs)[0].to(torch.int32)),
+            "the library route of kernel 2 keeps other records than the kernel")
     vals = 2 * int(aux.counts.sum())
     bytes_moved = vals * ds.width // 8 + n_rec * (8 * 3 + 1) + n_rec * (1 + 32)
     table.append(dict(name="minmax.segminmax_refine", route="cuda",
@@ -832,7 +889,7 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
                       replaces="src/repro/kernels/minmax/kernel.py:93",
                       mismatches=bad, max_abs_err=err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                       bytes=bytes_moved, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
-                      bound_by="bytes", library_ms=None,
+                      bound_by="bytes", library_ms=l_ms, library_route=lib_diff,
                       shape={"records": n_rec, "values": vals, "width": ds.width}))
 
     # ---- kernel 3: per-page min/max of a float32 column
@@ -2415,11 +2472,12 @@ def train_path(args, lake: Path, work: Path, counters) -> dict:
     torch.cuda.empty_cache()
 
     out["dense"] = dense_train(args)
+    out["remat"] = remat_train(args)
     out["flash_under_grad"] = flash_under_grad()
-    # (b) and (c) are training paths too: what they launch joins (a)'s count
+    # (b) to (d) are training paths too: what they launch joins (a)'s count
     end = _counts(counters)
     require(all(end[k] == after[k] for k in (*LM_KERNELS, F32_FLASH)),
-            "(b) or (c) launched the flash kernel")
+            "(b), (c) or (d) launched the flash kernel")
     out["launches"] = {k: path[k] + end[k] - after[k] for k in path}
     out["wall_s"] = time.perf_counter() - t_phase
     return out
@@ -2510,8 +2568,136 @@ def dense_train(args) -> dict:
     return out
 
 
+def remat_train(args) -> dict:
+    """Phase 4d (c): internlm2-1.8b as shipped (``remat="full"``,
+    ``attn_impl="blocked"``), bf16 compute over float32 parameters, trained
+    at its published widths and full depth, 24 layers, on one card.
+
+    First the three ``remat`` modes side by side at 4 of its 24 layers and
+    (1, 4096): one forward and backward each (``value_and_grad``), in the
+    order none, none again, full, selective. The gradients of full and
+    selective must equal none's leaf by leaf within the floor that the two
+    runs of none show (``max |a - b| / max |b|`` over the leaves; 0 where
+    the card repeats itself bit for bit), and so must the losses.
+
+    Then 3 AdamW steps of ``make_train_step`` on one synthetic (2, 4096)
+    batch: the config's ``grad_accum`` of 16 clamps to 2 microbatches of 1.
+    The loss must fall. The peak is held under the card's 80 GB and under
+    its reckoning: the float32 parameters, both moments, the gradient sum
+    and the microbatch's gradients (5 x P); one bf16 input (1, 4096, 2048)
+    a layer, which is all ``"full"`` keeps through the forward; one layer's
+    recompute set, from the 4-layer runs (none holds 4 sets, full 4 inputs
+    and 1 set: set = (peak_none - peak_full + 4 x input) / 3); and the
+    microbatch's logits with the float32 terms of the loss and their
+    gradient, 12 bytes a logit (as :func:`dense_train` counts them). Without
+    ``remat`` the same step would keep 24 sets."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_token_iter
+    from repro_torch.models import build_model, flatten_with_paths
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+
+    name, b, s, steps = REMAT_TRAIN
+    cfg = get_config(name)
+    require(cfg.remat == "full" and cfg.attn_impl == "blocked",
+            f"{name} ships remat {cfg.remat!r} and attention {cfg.attn_impl!r}")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # the modes side by side at 4 layers: one forward and backward each
+    layers, cb, cs = REMAT_COMPARE
+    small = dataclasses.replace(cfg, n_layers=layers)
+    params = build_model(small).init(args.seed, device=DEVICE)
+    toks = next(synthetic_token_iter(cfg.vocab, seq_len=cs, global_batch=cb,
+                                     seed=args.seed))["tokens"][0]
+    runs, grads = {}, {}
+    for run in ("none", "none_again", "full", "selective"):
+        model = build_model(dataclasses.replace(small, remat=run.split("_")[0]))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (loss, _), g = value_and_grad(model.loss)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        runs[run] = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
+                     "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9}
+        grads[run] = dict(flatten_with_paths(g))
+        del g, loss
+
+    def worst(run):
+        return max(float((grads[run][k].float() - w.float()).abs().max())
+                   / max(float(w.float().abs().max()), 1e-30) for k, w in grads["none"].items())
+
+    floor = worst("none_again")
+    for run in runs:
+        runs[run]["grad_worst_rel"] = worst(run)
+        runs[run]["bit_equal_leaves"] = sum(_bits_equal(grads[run][k], w)
+                                            for k, w in grads["none"].items())
+        runs[run]["loss_diff"] = abs(runs[run]["loss"] - runs["none"]["loss"])
+    leaves = len(grads["none"])
+    del grads, params
+    torch.cuda.empty_cache()
+    layer_input = cb * cs * cfg.d_model * 2
+    layer_set = (runs["none"]["peak_gb"] - runs["full"]["peak_gb"]) * 1e9 + layers * layer_input
+    layer_set /= layers - 1
+    compare = {"n_layers": layers, "batch": cb, "seq": cs, "leaves": leaves, "runs": runs,
+               "floor": floor, "loss_floor": runs["none_again"]["loss_diff"],
+               "layer_set_gb": layer_set / 1e9,
+               "note": "peak_gb: above what was allocated before the run; the first none run "
+                       "is the first call at these shapes"}
+    emit({"remat_compare": compare})
+    for run in ("full", "selective"):
+        require(runs[run]["grad_worst_rel"] <= floor,
+                f"remat={run}: gradients {runs[run]['grad_worst_rel']} from none's, beyond the "
+                f"floor {floor} of two none runs")
+        require(runs[run]["loss_diff"] <= compare["loss_floor"],
+                f"remat={run}: loss {runs[run]['loss']} vs none's {runs['none']['loss']}")
+
+    # 3 steps at full depth, (2, 4096), as shipped
+    model = build_model(cfg)
+    params = model.init(args.seed, device=DEVICE)
+    pbytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    step_fn, bstruct = make_train_step(cfg, oc, b, s, device=DEVICE)
+    accum, mb, _ = bstruct["tokens"][0]
+    require(accum == 2 and mb == 1, f"accumulation {accum} x {mb}, expected 2 x 1")
+    reckoned = {"state": 5 * pbytes, "layer_inputs": cfg.n_layers * mb * s * cfg.d_model * 2,
+                "layer_set": layer_set, "logits": mb * s * cfg.vocab * 12}
+    opt = opt_init(oc, params, cfg.opt_state_dtype)
+    toks = next(synthetic_token_iter(cfg.vocab, seq_len=s, global_batch=b,
+                                     seed=args.seed))["tokens"][0]
+    batch = {"tokens": toks.reshape(accum, mb, s)}
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"config": name, "n_layers": cfg.n_layers, "remat": cfg.remat,
+           "attn_impl": cfg.attn_impl, "batch": b, "seq": s, "grad_accum": accum,
+           "param_gb": pbytes / 1e9, "losses": losses, "step_s": step_s,
+           "reckoned_gb": {k: v / 1e9 for k, v in reckoned.items()},
+           "reckoned_peak_gb": sum(reckoned.values()) / 1e9, "peak_gb": peak / 1e9,
+           "compare": compare, "wall_s": time.perf_counter() - t_phase}
+    emit({"train_remat": {k: v for k, v in out.items() if k != "compare"}})
+    require(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    require(losses[-1] < losses[0], f"the {name} loss did not fall: {losses}")
+    require(peak < 80e9, f"{name} peaked at {peak / 1e9} GB, over the card's 80 GB")
+    require(peak <= sum(reckoned.values()),
+            f"{name} peaked at {peak / 1e9} GB, over its reckoning {out['reckoned_gb']}")
+    del params, opt, step_fn, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_under_grad() -> dict:
-    """Phase 4d (c): a backward through ``attn_impl="flash"`` raises on the card."""
+    """Phase 4d (d): a backward through ``attn_impl="flash"`` raises on the card."""
     import dataclasses
 
     import torch
@@ -2540,7 +2726,7 @@ def dryrun_child() -> int:
     (``chip_smoke.py --dryrun-child``, started before phase 3b, the codec,
     so that it runs beside the card's phases): the dry run of
     ``DRYRUN_CELLS`` on a fake group of 256 ranks, and the FLOPs and bytes
-    of phase 4d's two measured steps on one device, counted on fake
+    of phase 4d's three measured steps on one device, counted on fake
     tensors. Its result is the line that starts with ``DRYRUN``."""
     import dataclasses
 
@@ -2573,6 +2759,10 @@ def dryrun_child() -> int:
             spatial, ShapeConfig("train_4d", TRAIN_SEQ, TRAIN_BATCH, "train"))},
         "qwen3_8b_2_layers": {"dtype": dense.dtype, **one_device_counts(
             dense, ShapeConfig("train_4d", s, b, "train"))}}
+    name, b, s, _ = REMAT_TRAIN
+    full = get_config(name)
+    out["steps"]["internlm2_1_8b"] = {"dtype": full.dtype, **one_device_counts(
+        full, ShapeConfig("train_4d", s, b, "train"))}
     print("DRYRUN " + json.dumps(out), flush=True)
     return 0
 
@@ -2827,10 +3017,16 @@ def mesh_path(args, lake: Path, work: Path, counters, trn: dict, dry) -> dict:
                            "waited_s": out["dryrun"]["waited_s"]}})
     # (d) phase 4d's measured steps against their roofline bounds on one card
     dense_s = trn["dense"]["step_s"][1:]
+    remat_s = trn["remat"]["step_s"][1:]
     measured = {"spatial_lm": trn["spatial_lm"]["step_ms"] / 1e3,
-                "qwen3_8b_2_layers": sum(dense_s) / len(dense_s)}
+                "qwen3_8b_2_layers": sum(dense_s) / len(dense_s),
+                "internlm2_1_8b": sum(remat_s) / len(remat_s)}
+    # the card's peak of each counted step (spatial-lm's (8, 256) step has none)
+    peaks = {"spatial_lm": None, "qwen3_8b_2_layers": trn["dense"]["peak_gb"],
+             "internlm2_1_8b": trn["remat"]["peak_gb"]}
     out["step_shares"] = {k: {**step_share(measured[k], c["flops"], c["bytes"], c["dtype"]),
-                              "flops": c["flops"], "bytes": c["bytes"], "dtype": c["dtype"]}
+                              "flops": c["flops"], "bytes": c["bytes"], "dtype": c["dtype"],
+                              "fake_peak_gb": c["peak"] / 1e9, "card_peak_gb": peaks[k]}
                           for k, c in res["steps"].items()}
     emit({"roofline_share": out["step_shares"]})
     out["launches"] = {**{k: 0 for k in path}, **sharded["launches"], sm90: path[sm90]}
@@ -3003,7 +3199,11 @@ def main() -> int:
                             "arctic-480b_decode_check_positions": [FAMILY_DECODE_SEQ, 64]},
                "train": {"qwen3-8b": {"n_layers": [get_config(LM_CONFIG).n_layers,
                                                    DENSE_TRAIN[0]],
-                                      "global_batch": [LM_FULL_BATCH, DENSE_TRAIN[1]]}},
+                                      "global_batch": [LM_FULL_BATCH, DENSE_TRAIN[1]]},
+                         REMAT_TRAIN[0]: {"global_batch": [LM_FULL_BATCH, REMAT_TRAIN[1]],
+                                          "compare_n_layers": [
+                                              get_config(REMAT_TRAIN[0]).n_layers,
+                                              REMAT_COMPARE[0]]}},
                "mesh": {"qwen3-8b": {"n_layers": [get_config(LM_CONFIG).n_layers,
                                                   DENSE_TRAIN[0]],
                                      "global_batch": [LM_FULL_BATCH, DENSE_TRAIN[1]]},

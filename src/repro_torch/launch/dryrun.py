@@ -28,7 +28,10 @@ but tracing every layer through DTensor's dispatch takes minutes at full
 depth (qwen3-8b ``train_4k``: 36 layers x 16 microbatches), so
 ``--counting calibrated`` traces only the reference's L-sweep (one and two
 periods of layers, the same microbatching) and extrapolates every number,
-and ``--counting both`` records the sweep beside the direct count. The fake
+and ``--counting both`` records the sweep beside the direct count. A train
+step runs with the config's ``remat`` (``"full"`` for ten of the eleven
+configs): its FLOPs include the backward's recompute of each layer, which
+the card executes, and its peak holds one input a layer. The fake
 group is set up in :func:`main` (or :func:`fake_group`) only; importing
 this module touches no process group.
 
@@ -204,8 +207,11 @@ def sharding_fallbacks(cfg, specs: dict, mesh) -> list[str]:
 def one_device_counts(cfg, shape: ShapeConfig) -> dict:
     """FLOPs and bytes (the unfused upper bound) of one ``train_step`` of
     ``cfg`` on one device, no mesh, counted on fake tensors: the work a
-    measured step on one card did, for its roofline share."""
+    measured step on one card did, for its roofline share. ``peak``: the
+    step's peak bytes by ``MemTracker``, the parameters and optimizer state
+    it holds included, what a card's ``max_memory_allocated`` would read."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
 
     if shape.kind != "train":
         raise ValueError("one_device_counts counts train steps")
@@ -214,10 +220,13 @@ def one_device_counts(cfg, shape: ShapeConfig) -> dict:
     with FakeTensorMode(allow_non_fake_inputs=True) as fake_mode:
         fake = tree_map(_fake_leaf, specs)
         step, _ = make_train_step(cfg, oc, shape.global_batch, shape.seq_len, device="cpu")
+        tracker = MemTracker()
+        tracker.track_external(*tree_leaves({"s": (fake["params"], fake["opt_state"])}))
         counter = StepCounter(fake_mode)
-        with counter:
+        with tracker, counter:
             step(fake["params"], fake["opt_state"], fake["batch"])
-    return {"flops": float(counter.flops), "bytes": float(counter.bytes)}
+        peak = max(v.get("Total", 0) for v in tracker.get_tracker_snapshot("peak").values())
+    return {"flops": float(counter.flops), "bytes": float(counter.bytes), "peak": float(peak)}
 
 
 def _totals(run: dict) -> dict:
@@ -321,8 +330,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, counting: str = "di
     n_ranks = mesh.size()
     print(f"[dryrun] {arch} x {shape_name} mesh="
           f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} ({n_ranks} ranks)", flush=True)
+    # the step runs as shipped: a train step rematerialises by the config's
+    # ``remat``, so its FLOPs count the recompute and its peak what is kept
     rec: dict = {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
-                 "chips": n_ranks, "status": "ok", "overrides": overrides or []}
+                 "chips": n_ranks, "status": "ok", "overrides": overrides or [],
+                 "remat": cfg.remat}
     rec["counting"] = counting
     if counting == "calibrated":
         # the full-depth trace is not run: every number comes from the L-sweep

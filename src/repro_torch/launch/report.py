@@ -107,10 +107,15 @@ def multipod_table(recs) -> list[str]:
     return out
 
 
+def _remat(r) -> str:
+    """A train cell's ``remat`` (the mode its step ran with), for a table."""
+    return f", remat {r['remat']}" if r.get("remat") and r.get("shape", "").startswith("train") else ""
+
+
 def cells_table(recs, pod="pod1") -> list[str]:
     """One row a config, one column a shape: each cell's dominant roofline
     term, its bound and the rank's peak (decimal GB), as ``PERF.md`` §5
-    tabulates a sweep."""
+    tabulates a sweep; a train cell also names its ``remat``."""
     out = ["| Config | " + " | ".join(SHAPE_ORDER) + " |",
            "| --- |" + " --- |" * len(SHAPE_ORDER)]
     for arch in ARCH_ORDER:
@@ -126,7 +131,7 @@ def cells_table(recs, pod="pod1") -> list[str]:
             else:
                 t = r["roofline"]
                 row.append(f"{t['dominant']} {t['bound_s']:.4g} s, "
-                           f"{r['memory']['peak_hbm_bytes'] / 1e9:.1f} GB")
+                           f"{r['memory']['peak_hbm_bytes'] / 1e9:.1f} GB{_remat(r)}")
         out.append(f"| {arch} | " + " | ".join(row) + " |")
     return out
 
@@ -148,7 +153,8 @@ def flops_table(recs) -> list[str]:
                 ok = r.get("status") == "ok"
                 vals += [f"{r['useful_flops_ratio']:.3f}" if ok else "-",
                          f"{r.get('whole_flops_share', 0.0):.3f}" if ok else "-"]
-            out.append(f"| {arch} | {shape} | " + " | ".join(vals) + " |")
+            out.append(f"| {arch} | {shape}{_remat(cells[0] or cells[1])} | "
+                       + " | ".join(vals) + " |")
     return out
 
 

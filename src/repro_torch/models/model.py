@@ -10,8 +10,8 @@ functions over dicts of tensors, as in the reference:
   reference's weights across unchanged;
 * ``forward(params, batch)``: the full forward, ``(logits, aux, label_mask)``;
 * ``loss(params, batch)``: next-token cross entropy plus the MoE aux
-  losses, ``(loss, metrics)``. Forward only: the port has no backward pass
-  or optimizer yet;
+  losses, ``(loss, metrics)``, differentiable by autograd
+  (:mod:`repro_torch.train` takes its gradients);
 * ``init_cache(batch, max_len, device="cuda")`` / ``forward_with_cache`` /
   ``decode_step``: the serving path with fixed-capacity caches, at one
   scalar position or at per-slot positions (a ``(B,)`` ``cache["pos"]``).
@@ -36,9 +36,30 @@ identity.
 
 Parameters are stored in ``param_dtype`` and cast to the activation dtype
 at each use; logits come out in the activation dtype. The layer stack is a
-Python loop (no ``scan``, no ``jit``): PyTorch runs eagerly, so the
-config's ``remat`` and ``unroll_layers`` knobs change nothing here and are
-ignored. Caches are written in place.
+Python loop (no ``scan``, no ``jit``). Caches are written in place.
+
+Rematerialisation (the reference's ``jax.checkpoint`` around its layer
+scans), by the config's ``remat``:
+
+* ``"none"``: autograd keeps what every op saves for the backward;
+* ``"full"``: each decoder layer (with the hybrid's shared block that it
+  calls) and each encoder layer runs under ``torch.utils.checkpoint``
+  (non-reentrant): only the layer's inputs stay alive through the forward,
+  and the backward runs the layer again. On a mesh the layer's FSDP gather
+  runs inside, so its gathered weights are freed after its forward and
+  gathered again for its backward;
+* ``"selective"``: the same, with a policy that keeps the outputs of the
+  products with no batch dims (``dots_with_no_batch_dims_saveable``):
+  ``x @ w`` of a (B, S, d) activation by a weight, which autograd folds to
+  ``aten.mm`` (or ``aten.addmm``), and recomputes everything else: the
+  batched products (``aten.bmm`` of attention scores and values, the MoE
+  experts' and the SSD's einsums), norms, RoPE, casts and elementwise ops.
+
+With ``unroll_layers`` the decoder's layers run unwrapped and the encoder's
+stay wrapped, as in the reference. A layer is wrapped only where autograd
+records (grad mode on and a parameter or the input requiring grad): serving,
+prefill and every ``no_grad`` forward run the same ops under any ``remat``.
+The values are the same under all three.
 """
 
 from __future__ import annotations
@@ -49,6 +70,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from .._device import torch_device
 from ..configs.base import ModelConfig
@@ -56,6 +79,7 @@ from ..sharding.dtensor import batch_sharded, embed_lookup, gather_fsdp, is_dten
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from .convert import tree_leaves
 from .layers import (MetaGenerator, cross_entropy_loss, dense_init, dtype_of, embed_init,
                      init_mlp, mlp, rms_norm, sinusoidal_embedding)
 
@@ -210,6 +234,57 @@ def _decoder_layer(cfg, lp, x, positions, *, shared=None, layer_idx=0, cache=Non
     return _ffn_block(cfg, lp, x)
 
 
+# ----------------------------------------------------------- rematerialise
+REMAT_MODES = ("none", "full", "selective")
+
+# what ``x @ w`` of a (B, S, d) activation by a (d, n) weight that requires
+# grad dispatches to: ``matmul`` folds the batch into rows and calls ``mm``
+_PRODUCTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _products_saved(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the products with no batch
+    dims, recompute every other op."""
+    return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_SELECTIVE = functools.partial(create_selective_checkpoint_contexts, _products_saved)
+
+
+def _remat_contexts(cfg: ModelConfig, params: dict, x: torch.Tensor):
+    """The ``context_fn`` each layer runs under with ``torch.utils.checkpoint``
+    (:func:`noop_context_fn` for ``"full"``), or ``None`` where layers run
+    unwrapped: ``remat="none"``, or nothing for autograd to record."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, not {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return None
+    if not (x.requires_grad or any(t.requires_grad for t in tree_leaves(params))):
+        return None
+    return _SELECTIVE if cfg.remat == "selective" else noop_context_fn
+
+
+def _run(contexts, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` unless ``contexts`` is
+    ``None``."""
+    if contexts is None:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
+def _decoder_layer_at(cfg, params, i, x, positions, shared, enc_out):
+    """Decoder layer ``i`` of ``params`` on ``x``, its weights taken (and on
+    a mesh gathered) inside, so a checkpoint frees them with the layer's
+    other saved tensors."""
+    return _decoder_layer(cfg, _weights(params, "layers", i), x, positions, shared=shared,
+                          layer_idx=i, enc_out=enc_out)
+
+
+def _encoder_layer_at(cfg, enc, i, x, positions):
+    return _shared_block(cfg, _weights(enc, "layers", i), x, positions, causal=False)
+
+
 # --------------------------------------------------------------- embeddings
 def _embed_inputs(cfg, params, batch):
     """Returns (x (B,S,d) activations, positions (S,), label_mask or None)."""
@@ -236,8 +311,9 @@ def _encode(cfg, params, batch):
     x = x + sinusoidal_embedding(x.shape[1], cfg.d_model, dev)[None].to(adt)
     positions = torch.arange(x.shape[1], device=dev)
     enc = params["encoder"]
+    contexts = _remat_contexts(cfg, enc, x)
     for i in range(cfg.n_encoder_layers):
-        x = _shared_block(cfg, _weights(enc, "layers", i), x, positions, causal=False)
+        x = _run(contexts, functools.partial(_encoder_layer_at, cfg, enc, i), x, positions)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -258,9 +334,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
     if cfg.family == "moe":
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = {"moe_aux_loss": zero, "router_z_loss": zero}
+    contexts = None if cfg.unroll_layers else _remat_contexts(cfg, params, x)
     for i in range(cfg.n_layers):
-        x, aux_i = _decoder_layer(cfg, _weights(params, "layers", i), x, positions,
-                                  shared=shared, layer_idx=i, enc_out=enc_out)
+        x, aux_i = _run(contexts, functools.partial(_decoder_layer_at, cfg, params, i),
+                        x, positions, shared, enc_out)
         aux = {k: aux[k] + v for k, v in aux_i.items()} if aux_i else aux
     return _logits(cfg, params, x), aux, label_mask
 

@@ -974,6 +974,47 @@ def test_train_step_on_card_matches_cpu(card, arch):
         assert bool(((pg[k].cpu().double() - pc[k].double()).abs() <= bound).all()), k
 
 
+@pytest.mark.parametrize("remat", ["full", "selective"])
+def test_remat_gradients_on_card_equal_none(card, monkeypatch, remat):
+    """A reduced internlm2 (4 layers, bf16 compute over float32 parameters,
+    the shipped ``"blocked"`` attention) on the card: the loss and every
+    gradient leaf under ``remat`` against ``"none"``, within the floor that
+    two ``"none"`` runs show (max |a - b| over max |b|, 0 where the card
+    repeats itself bit for bit); and each layer ran under a checkpoint."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import model as model_mod
+    from repro_torch.train.train_loop import value_and_grad
+
+    base = dataclasses.replace(get_config("internlm2-1.8b").reduced(), n_layers=4,
+                               dtype="bfloat16", attn_impl="blocked")
+    params = build_model(base).init(0, device=card)
+    toks = np.random.default_rng(4).integers(0, base.vocab, (2, 256)).astype(np.int32)
+    runs = {}
+    calls = []
+    real = model_mod.checkpoint
+    monkeypatch.setattr(model_mod, "checkpoint",
+                        lambda fn, *a, **k: calls.append(fn) or real(fn, *a, **k))
+    for name, mode in (("none", "none"), ("again", "none"), ("remat", remat)):
+        (loss, _), g = value_and_grad(build_model(dataclasses.replace(base, remat=mode))
+                                      .loss)(params, {"tokens": toks})
+        runs[name] = (loss.float(), _flat_tree(g))
+    assert len(calls) == base.n_layers
+
+    def worst(name):
+        lw, gw = runs["none"]
+        lg, gg = runs[name]
+        rel = [float((gg[k].float() - w.float()).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for k, w in gw.items()]
+        return max(rel), float((lg - lw).abs())
+
+    floor, loss_floor = worst("again")
+    got, loss_diff = worst("remat")
+    assert got <= floor and loss_diff <= loss_floor, (got, floor, loss_diff, loss_floor)
+
+
 def test_flash_raises_under_grad_on_card(card):
     """A backward through ``attn_impl="flash"`` raises on the card, before
     any launch, as on the CPU; without a gradient the kernel runs."""

@@ -174,6 +174,10 @@ def _reference_trace_scan_facts(tmp: Path) -> list[str]:
     finally:
         obs.disable()
     counters = obs.snapshot()["counters"]
+    # disable() keeps the registry readable: leave a fresh, empty one, so a
+    # later test in this process that reads the module's snapshot sees none
+    obs.enable()
+    obs.disable()
     return ([f"scan: {stats.records_returned}/{stats.records_scanned} records, "
              f"{stats.bytes_read}/{stats.bytes_total} bytes read"]
             + [f"bytes pruned at {level} level: {counters.get(f'pruned.{level}_bytes', 0)}"

@@ -6,7 +6,8 @@ back on the CPU, round-trips an array through the miniblock codec, writes a
 sharded dataset and scans it, answers a query-server wave and draws one
 data-feed batch over it, builds a reduced dense LM on the CPU, runs its
 forward and serves two requests, runs the forward and loss of every config's
-reduced variant (all six families), trains a reduced spatial-lm from the
+reduced variant (all six families), takes one backward under
+``remat="full"`` (equal to ``"none"``'s), trains a reduced spatial-lm from the
 lake with a compressed checkpoint and resumes from it (``ml_dtypes`` blocked
 too: the port must run where it is not installed), checks that every entry point's
 default device asks for a card, and runs the sharding slice: partition rules
@@ -175,6 +176,20 @@ if not torch.cuda.is_available():
         assert "no CUDA device" in str(e)
     else:
         raise AssertionError("restore on the default device ran without a card")
+
+# one backward under remat="full": each layer under torch.utils.checkpoint,
+# recomputed in the backward, the same bits as without
+from repro_torch.models import flatten_with_paths
+from repro_torch.train.train_loop import value_and_grad
+
+small = get_config("qwen3-8b").reduced()
+p0 = build_model(small).init(0, device="cpu")
+toks = {"tokens": np.arange(64, dtype=np.int32).reshape(2, 32) % small.vocab}
+grads = {}
+for remat in ("none", "full"):
+    _, g = value_and_grad(build_model(dataclasses.replace(small, remat=remat)).loss)(p0, toks)
+    grads[remat] = dict(flatten_with_paths(g))
+assert all(torch.equal(grads["full"][k], grads["none"][k]) for k in grads["none"])
 
 # the sharding slice: partition rules, meshes, a sharded step on a one-rank
 # gloo group, the roofline tools and the dry run's no-allocation specs

@@ -30,7 +30,10 @@ within what its moments imply), and MLA decode over a sequence-sharded
 latent cache, whose greedy tokens equal one device's exactly. Reduced
 qwen3 with 4 query and 2 kv heads trains too: its query heads divide
 'model' and its kv heads do not, so each rank's kv gradient is a partial
-sum over 'model' (the per-rank attention once declared it whole).
+sum over 'model' (the per-rank attention once declared it whole). Reduced
+qwen3 and qwen2-moe train again under ``remat="full"`` (the shipped
+configs' mode; reduced configs set ``"none"``), each layer recomputed with
+its collectives in the backward.
 """
 
 import datetime
@@ -236,10 +239,16 @@ GLOO_TRAIN = [
     ("zamba2-1.2b", {}),
     ("minicpm3-4b", {"n_heads": 6}),
     ("qwen3-8b", {"n_heads": 4, "n_kv_heads": 2}),
+    # remat="full" on a mesh: each layer's FSDP gather, its local calls and
+    # their collectives run again in the backward's recompute
+    ("qwen3-8b", {"n_heads": 4, "n_kv_heads": 2, "remat": "full"}),
+    ("qwen2-moe-a2.7b", {"remat": "full"}),
 ]
 
 
-@pytest.mark.parametrize("arch,changes", GLOO_TRAIN, ids=[t[0] for t in GLOO_TRAIN])
+@pytest.mark.parametrize("arch,changes", GLOO_TRAIN,
+                         ids=[a + (f"-remat-{c['remat']}" if "remat" in c else "")
+                              for a, c in GLOO_TRAIN])
 def test_train_step_on_a_1x4_mesh_equals_one_device(tmp_path, arch, changes):
     r = _launch(tmp_path, "train", 4, arch, changes)
     for k, (one, sharded) in r["metrics"].items():
