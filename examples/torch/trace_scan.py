@@ -67,13 +67,14 @@ def main():
         print(f"{row['name']:<22}{row['count']:>6}"
               f"{row['total_ms']:>11.3f}{row['max_ms']:>9.3f}")
 
-    # 5. Metrics snapshot highlights: latency percentiles + derived gauges
+    # 5. Metrics snapshot highlights: latency and host CPU percentiles
     snap = obs.snapshot()
     lat = snap["histograms"]["scan.dataset_latency_s"]
     print(f"\nscan latency: p50={lat['p50'] * 1e3:.2f}ms "
           f"p99={lat['p99'] * 1e3:.2f}ms over {lat['count']} scan(s)")
-    print(f"host CPU per scanned GB: "
-          f"{snap['gauges']['scan.host_cpu_s_per_gb']:.2f} s/GB")
+    cpu = snap["histograms"]["scan.host_cpu_s_per_gb"]
+    print(f"host CPU per scanned GB: p50={cpu['p50']:.2f} s/GB "
+          f"over {cpu['count']} scan(s)")
     for level in ("shard", "page", "record"):
         print(f"bytes pruned at {level} level: "
               f"{snap['counters'].get(f'pruned.{level}_bytes', 0)}")

@@ -14,6 +14,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch import obs
+
 try:
     import zstandard as _zstd
 except ImportError:  # pragma: no cover - zstd optional
@@ -196,25 +198,28 @@ def page_stream_plan(buf, meta: PageMeta, dtype, codec: str) -> FPDeltaPlan:
     both encodings uniformly (each value a W-bit anchor), which is what lets
     the fused decode→refine path cover whole row groups regardless of how
     individual pages were encoded. Bit-identical to ``np.frombuffer`` on the
-    payload (little-endian word math either way).
+    payload (little-endian word math either way). Traced as the
+    ``page.plan`` span.
     """
-    if meta.encoding == ENC_FP_DELTA:
-        return page_plan(buf, meta, dtype, codec)
-    if meta.encoding != ENC_RAW:
-        raise ValueError(f"unknown encoding {meta.encoding!r}")
-    dtype = np.dtype(dtype)
-    width = dtype.itemsize * 8
-    if width not in (32, 64):
-        raise TypeError(f"unsupported dtype {dtype}")
-    payload = decompress(buf, codec)
-    if meta.count == 0:
-        return FPDeltaPlan(dtype, width, 0, 0, 0, np.zeros(1, np.uint64),
+    with (obs.span("page.plan", cat="plan", values=meta.count, encoding=meta.encoding)
+          if obs.enabled() else obs.NULL_SPAN):
+        if meta.encoding == ENC_FP_DELTA:
+            return page_plan(buf, meta, dtype, codec)
+        if meta.encoding != ENC_RAW:
+            raise ValueError(f"unknown encoding {meta.encoding!r}")
+        dtype = np.dtype(dtype)
+        width = dtype.itemsize * 8
+        if width not in (32, 64):
+            raise TypeError(f"unsupported dtype {dtype}")
+        payload = decompress(buf, codec)
+        if meta.count == 0:
+            return FPDeltaPlan(dtype, width, 0, 0, 0, np.zeros(1, np.uint64),
+                               _EMPTY_OFFS, _EMPTY_FLAGS, 0)
+        shifted = bytearray(1 + len(payload))
+        shifted[1:] = payload
+        assert HEADER_BITS == 8, "synthetic raw plan assumes a one-byte header"
+        return FPDeltaPlan(dtype, width, 0, meta.count, 0, bytes_to_words(shifted),
                            _EMPTY_OFFS, _EMPTY_FLAGS, 0)
-    shifted = bytearray(1 + len(payload))
-    shifted[1:] = payload
-    assert HEADER_BITS == 8, "synthetic raw plan assumes a one-byte header"
-    return FPDeltaPlan(dtype, width, 0, meta.count, 0, bytes_to_words(shifted),
-                       _EMPTY_OFFS, _EMPTY_FLAGS, 0)
 
 
 def encode_pages(

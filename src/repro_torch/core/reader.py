@@ -111,7 +111,6 @@ from .pages import (
     PageMeta,
     decode_page,
     decompress,
-    page_plan,
     page_stream_plan,
 )
 from .rle import decode_levels, rle_decode
@@ -313,11 +312,14 @@ class _RowGroupLevels:
 
     def record_value_counts(self) -> np.ndarray:
         """Values per record across the whole row group (pages are
-        record-aligned, so hit runs slice out of this contiguously)."""
-        d64 = self.defn.astype(np.int64)
-        value_idx = np.cumsum(d64) - d64
-        total = int(value_idx[-1] + d64[-1]) if len(d64) else 0
-        return np.diff(np.append(value_idx[self.slot_starts], total))
+        record-aligned, so hit runs slice out of this contiguously). Traced
+        as the ``rg.value_counts`` span."""
+        with (obs.span("rg.value_counts", cat="decode", slots=len(self.defn))
+              if obs.enabled() else obs.NULL_SPAN):
+            d64 = self.defn.astype(np.int64)
+            value_idx = np.cumsum(d64) - d64
+            total = int(value_idx[-1] + d64[-1]) if len(d64) else 0
+            return np.diff(np.append(value_idx[self.slot_starts], total))
 
 
 @dataclass
@@ -369,36 +371,39 @@ class SpatialParquetReader:
     ``source=`` instead (e.g. a :class:`~repro_torch.io.remote.RemoteRangeSource`)
     to read the same bytes from elsewhere — the reader owns whichever source
     it ends up with and closes it. ``verify_checksums=False`` skips the v2
-    integrity checks (v1 files carry none and are never verified).
+    integrity checks (v1 files carry none and are never verified). The open
+    (the source, the footer and its checksum, the index) is traced as the
+    ``reader.open`` span.
     """
 
     def __init__(self, path=None, *, source=None, coalesce_max_gap: int = 1 << 16,
                  prefetch_row_groups: int = 1, verify_checksums: bool = True):
-        if source is None:
-            if path is None:
-                raise ValueError("SpatialParquetReader needs a path or a source")
-            source = LocalFileSource(path)
-        self.path = str(path) if path is not None else getattr(
-            source, "path", "<source>")
-        self.coalesce_max_gap = int(coalesce_max_gap)
-        self.prefetch_row_groups = max(0, int(prefetch_row_groups))
-        self._source = source
-        self._closed = False
-        try:
-            self.footer = self._read_footer()
-            self.coord_dtype = np.dtype(self.footer["coord_dtype"])
-            self.codec = self.footer["codec"]
-            self.n_records = self.footer["n_records"]
-            self.extra_schema = self.footer.get("extra_schema", {})
-            self.checksum_algo = self.footer.get("checksum_algo")
-            self._verify = bool(verify_checksums) and self.checksum_algo is not None
-            self._blob_crc = checksum_fn(self.checksum_algo) if self._verify else None
-            self.index = SpatialIndex(self.footer)
-            self._data_bytes = self._total_data_bytes()
-        except Exception:
-            # never leak the handle/source when construction fails mid-way
-            self.close()
-            raise
+        with obs.span("reader.open", cat="io") if obs.enabled() else obs.NULL_SPAN:
+            if source is None:
+                if path is None:
+                    raise ValueError("SpatialParquetReader needs a path or a source")
+                source = LocalFileSource(path)
+            self.path = str(path) if path is not None else getattr(
+                source, "path", "<source>")
+            self.coalesce_max_gap = int(coalesce_max_gap)
+            self.prefetch_row_groups = max(0, int(prefetch_row_groups))
+            self._source = source
+            self._closed = False
+            try:
+                self.footer = self._read_footer()
+                self.coord_dtype = np.dtype(self.footer["coord_dtype"])
+                self.codec = self.footer["codec"]
+                self.n_records = self.footer["n_records"]
+                self.extra_schema = self.footer.get("extra_schema", {})
+                self.checksum_algo = self.footer.get("checksum_algo")
+                self._verify = bool(verify_checksums) and self.checksum_algo is not None
+                self._blob_crc = checksum_fn(self.checksum_algo) if self._verify else None
+                self.index = SpatialIndex(self.footer)
+                self._data_bytes = self._total_data_bytes()
+            except Exception:
+                # never leak the handle/source when construction fails mid-way
+                self.close()
+                raise
 
     @property
     def closed(self) -> bool:
@@ -457,7 +462,9 @@ class SpatialParquetReader:
         blob = src.blob(offset, nbytes)
         if not self._verify or crc is None:
             return blob
-        got = self._blob_crc(blob)
+        with (obs.span("rg.checksum", cat="io", bytes=nbytes)
+              if obs.enabled() else obs.NULL_SPAN):
+            got = self._blob_crc(blob)
         if got == crc:
             return blob
         stats.checksum_failures += 1
@@ -527,21 +534,25 @@ class SpatialParquetReader:
     def _decode_run_extras(self, src, extra_pages, extra_all, we: int,
                            p0: int, p1: int, stats: ReadStats) -> None:
         """Decode one run's extra-column pages into the preallocated columns
-        at record cursor ``we``."""
-        for k, ep in extra_pages.items():
-            wk = we
-            for p in range(p0, p1):
-                meta = PageMeta.from_dict(ep[p])
-                blob = self._checked_blob(
-                    src, meta.offset, meta.nbytes, meta.crc, stats,
-                    f"extra column {k!r} page {p}")
-                decode_page(
-                    blob, meta,
-                    np.dtype(self.extra_schema[k]), self.codec,
-                    out=extra_all[k][wk : wk + meta.count],
-                )
-                stats.bytes_read += meta.nbytes
-                wk += meta.count
+        at record cursor ``we`` (the ``rg.extras`` span)."""
+        if not extra_pages:
+            return
+        with (obs.span("rg.extras", cat="decode", columns=len(extra_pages), pages=p1 - p0)
+              if obs.enabled() else obs.NULL_SPAN):
+            for k, ep in extra_pages.items():
+                wk = we
+                for p in range(p0, p1):
+                    meta = PageMeta.from_dict(ep[p])
+                    blob = self._checked_blob(
+                        src, meta.offset, meta.nbytes, meta.crc, stats,
+                        f"extra column {k!r} page {p}")
+                    decode_page(
+                        blob, meta,
+                        np.dtype(self.extra_schema[k]), self.codec,
+                        out=extra_all[k][wk : wk + meta.count],
+                    )
+                    stats.bytes_read += meta.nbytes
+                    wk += meta.count
 
     def _iter_sources(self, items, coalesce: bool):
         """Yield ``(item, src)`` per hit row group, double-buffering reads.
@@ -583,7 +594,10 @@ class SpatialParquetReader:
                 pending.append(obs.submit(pool, fetch, items[nxt]))
                 nxt += 1
             for it in items:
-                src = pending.popleft().result()
+                # the client blocks here on the prefetch thread's rg.fetch
+                with (obs.span("rg.wait", cat="io", rg=it[0])
+                      if obs.enabled() else obs.NULL_SPAN):
+                    src = pending.popleft().result()
                 if nxt < len(items):
                     pending.append(obs.submit(pool, fetch, items[nxt]))
                     nxt += 1
@@ -627,11 +641,13 @@ class SpatialParquetReader:
         always decode on the host).
 
         With telemetry on (``repro_torch.obs.enable()``) the call is wrapped in a
-        ``scan.file`` span with per-row-group fetch/plan/decode/launch/
-        transfer child spans, and on return folds its ``ReadStats`` plus the
-        derived gauges (``scan.latency_s``, ``scan.host_cpu_s_per_gb``,
-        bytes-pruned-per-level) into the metrics registry. Disabled, the
-        path is allocation- and result-identical to the uninstrumented one.
+        ``scan.file`` span with child spans for the index (``scan.index``),
+        each row group's wait on the prefetch thread, planning, launches and
+        gather, and the assembly of the result (``scan.assemble``), and on
+        return folds its ``ReadStats`` and the histograms ``scan.latency_s``
+        and ``scan.host_cpu_s_per_gb`` and the bytes pruned per level into
+        the metrics registry. Disabled, the path is allocation- and
+        result-identical to the uninstrumented one.
         """
         if not obs.enabled():
             return self._read_columnar_impl(
@@ -652,8 +668,7 @@ class SpatialParquetReader:
         if scanned_gb > 0:
             # process-wide CPU per scanned GB: the GPU-layout-v2 ROADMAP
             # metric (how much host planning/decode a scan still costs)
-            obs.gauge("scan.host_cpu_s_per_gb", cpu / scanned_gb)
-            obs.observe("scan.host_cpu_s_per_gb_hist", cpu / scanned_gb)
+            obs.observe("scan.host_cpu_s_per_gb", cpu / scanned_gb)
         obs.count("pruned.page_bytes",
                   max(0, stats.bytes_total - stats.bytes_read))
         obs.fold_read_stats(stats)
@@ -687,27 +702,28 @@ class SpatialParquetReader:
         stats = ReadStats(pages_total=len(idx), bytes_total=self._data_bytes)
         src_stats0 = self._source.stats.copy()
 
-        # group hit-page runs by row group (runs arrive in file order)
-        hit = idx.query(bbox, filter=filter)
-        if filter is not None and obs.enabled():
-            # coordinate bytes of pages the zone stats pruned beyond bbox
-            zoned = np.setdiff1d(idx.query(bbox), hit, assume_unique=True)
-            obs.count("pruned.zone_bytes", int(idx.nbytes[zoned].sum()))
-        runs_by_rg: dict[int, list[tuple[int, int]]] = {}
-        for rg_i, p0, p1 in idx.page_runs(bbox, hit=hit):
-            runs_by_rg.setdefault(rg_i, []).append((p0, p1))
-            stats.pages_read += p1 - p0
+        with obs.span("scan.index", cat="plan") if obs.enabled() else obs.NULL_SPAN:
+            # group hit-page runs by row group (runs arrive in file order)
+            hit = idx.query(bbox, filter=filter)
+            if filter is not None and obs.enabled():
+                # coordinate bytes of pages the zone stats pruned beyond bbox
+                zoned = np.setdiff1d(idx.query(bbox), hit, assume_unique=True)
+                obs.count("pruned.zone_bytes", int(idx.nbytes[zoned].sum()))
+            runs_by_rg: dict[int, list[tuple[int, int]]] = {}
+            for rg_i, p0, p1 in idx.page_runs(bbox, hit=hit):
+                runs_by_rg.setdefault(rg_i, []).append((p0, p1))
+                stats.pages_read += p1 - p0
 
-        # per-row-group work items: (rg_i, rg, runs, base, extra_pages, ranges)
-        items = []
-        for rg_i, rg in enumerate(self.footer["row_groups"]):
-            runs = runs_by_rg.get(rg_i)
-            if not runs:
-                continue
-            base = int(np.searchsorted(idx.row_group, rg_i, side="left"))
-            extra_pages = {k: rg["extra"][k] for k in read_extra}
-            items.append((rg_i, rg, runs, base, extra_pages,
-                          self._rg_ranges(rg, runs, base, want_geom, extra_pages)))
+            # per-row-group work items: (rg_i, rg, runs, base, extra_pages, ranges)
+            items = []
+            for rg_i, rg in enumerate(self.footer["row_groups"]):
+                runs = runs_by_rg.get(rg_i)
+                if not runs:
+                    continue
+                base = int(np.searchsorted(idx.row_group, rg_i, side="left"))
+                extra_pages = {k: rg["extra"][k] for k in read_extra}
+                items.append((rg_i, rg, runs, base, extra_pages,
+                              self._rg_ranges(rg, runs, base, want_geom, extra_pages)))
 
         fused = use_device and want_geom and (
             keep_on_device or (refine and bbox is not None)
@@ -768,7 +784,7 @@ class SpatialParquetReader:
                         f"{axis} page {p} of row group {rg_i}")
                     if use_device and meta.encoding == ENC_FP_DELTA:
                         deferred.append(
-                            (page_plan(blob, meta, self.coord_dtype, self.codec),
+                            (page_stream_plan(blob, meta, self.coord_dtype, self.codec),
                              dest, off))
                     else:
                         decode_page(blob, meta, self.coord_dtype, self.codec,
@@ -810,40 +826,41 @@ class SpatialParquetReader:
         finally:
             src_iter.close()
 
-        if want_geom and types_parts:
-            geo = GeometryColumns(
-                np.concatenate(types_parts),
-                np.concatenate(type_rep_parts),
-                np.concatenate(rep_parts),
-                np.concatenate(defn_parts),
-                x_all[:w], y_all[:w],
+        with obs.span("scan.assemble", cat="decode") if obs.enabled() else obs.NULL_SPAN:
+            if want_geom and types_parts:
+                geo = GeometryColumns(
+                    np.concatenate(types_parts),
+                    np.concatenate(type_rep_parts),
+                    np.concatenate(rep_parts),
+                    np.concatenate(defn_parts),
+                    x_all[:w], y_all[:w],
+                )
+            else:
+                geo = None
+            extras = {k: v[:we] for k, v in extra_all.items()}
+            keep_mask = None
+            if refine and bbox is not None and geo is not None:
+                with obs.span("refine.host", cat="refine"):
+                    starts = geo.record_value_starts()
+                    counts = np.diff(np.append(starts, geo.n_values))
+                    keep_mask = _bbox_keep_mask(geo.x, geo.y, counts, bbox)
+            if filter is not None:
+                attr = (filter.mask(extras) if we
+                        else np.zeros(0, bool))
+                if we:
+                    obs.observe("filter.selectivity", float(attr.sum()) / we)
+                keep_mask = attr if keep_mask is None else keep_mask & attr
+            if keep_mask is not None:
+                if geo is not None:
+                    geo = permute_records(geo, np.flatnonzero(keep_mask))
+                    obs.count("pruned.record_bytes",
+                              (w - geo.n_values) * 2 * self.coord_dtype.itemsize)
+                extras = {k: v[keep_mask] for k, v in extras.items()}
+            if filter is not None:
+                extras = {k: extras[k] for k in want_extra}
+            stats.records_returned = geo.n_records if geo is not None else (
+                len(next(iter(extras.values()))) if extras else 0
             )
-        else:
-            geo = None
-        extras = {k: v[:we] for k, v in extra_all.items()}
-        keep_mask = None
-        if refine and bbox is not None and geo is not None:
-            with obs.span("refine.host", cat="refine"):
-                starts = geo.record_value_starts()
-                counts = np.diff(np.append(starts, geo.n_values))
-                keep_mask = _bbox_keep_mask(geo.x, geo.y, counts, bbox)
-        if filter is not None:
-            attr = (filter.mask(extras) if we
-                    else np.zeros(0, bool))
-            if we:
-                obs.observe("filter.selectivity", float(attr.sum()) / we)
-            keep_mask = attr if keep_mask is None else keep_mask & attr
-        if keep_mask is not None:
-            if geo is not None:
-                geo = permute_records(geo, np.flatnonzero(keep_mask))
-                obs.count("pruned.record_bytes",
-                          (w - geo.n_values) * 2 * self.coord_dtype.itemsize)
-            extras = {k: v[keep_mask] for k, v in extras.items()}
-        if filter is not None:
-            extras = {k: extras[k] for k in want_extra}
-        stats.records_returned = geo.n_records if geo is not None else (
-            len(next(iter(extras.values()))) if extras else 0
-        )
         self._fold_source_stats(stats, src_stats0)
         return geo, extras, stats
 
@@ -1026,39 +1043,40 @@ class SpatialParquetReader:
             src_iter.close()
         obs.count("pruned.record_bytes", vals_pruned * 2 * dtype.itemsize)
 
-        keep_all = (np.concatenate(keep_parts) if keep_parts
-                    else np.zeros(0, bool))
-        if types_parts:
-            types = np.concatenate(types_parts)
-            type_rep = np.concatenate(type_rep_parts)
-            rep = np.concatenate(rep_parts)
-            defn = np.concatenate(defn_parts)
-            if do_compact:
-                # record-aligned level subset == permute_records on the kept
-                # (sorted) records: canonical levels stay canonical
-                slot_keep = keep_all[np.cumsum(rep == 0) - 1]
-                type_keep = keep_all[np.cumsum(type_rep == 0) - 1]
-                types = types[type_keep]
-                type_rep = type_rep[type_keep]
-                rep = rep[slot_keep]
-                defn = defn[slot_keep]
-            if keep_on_device:
-                x = TorchCoords.concat(x_parts)
-                y = TorchCoords.concat(y_parts)
+        with obs.span("scan.assemble", cat="decode") if obs.enabled() else obs.NULL_SPAN:
+            keep_all = (np.concatenate(keep_parts) if keep_parts
+                        else np.zeros(0, bool))
+            if types_parts:
+                types = np.concatenate(types_parts)
+                type_rep = np.concatenate(type_rep_parts)
+                rep = np.concatenate(rep_parts)
+                defn = np.concatenate(defn_parts)
+                if do_compact:
+                    # record-aligned level subset == permute_records on the kept
+                    # (sorted) records: canonical levels stay canonical
+                    slot_keep = keep_all[np.cumsum(rep == 0) - 1]
+                    type_keep = keep_all[np.cumsum(type_rep == 0) - 1]
+                    types = types[type_keep]
+                    type_rep = type_rep[type_keep]
+                    rep = rep[slot_keep]
+                    defn = defn[slot_keep]
+                if keep_on_device:
+                    x = TorchCoords.concat(x_parts)
+                    y = TorchCoords.concat(y_parts)
+                else:
+                    x = np.concatenate(x_parts)
+                    y = np.concatenate(y_parts)
+                geo = GeometryColumns(types, type_rep, rep, defn, x, y)
             else:
-                x = np.concatenate(x_parts)
-                y = np.concatenate(y_parts)
-            geo = GeometryColumns(types, type_rep, rep, defn, x, y)
-        else:
-            geo = None
-        extras = {k: v[:we] for k, v in extra_all.items()}
-        if do_compact and geo is not None:
-            extras = {k: v[keep_all] for k, v in extras.items()}
-        if filter is not None and we:
-            obs.observe("filter.selectivity", float(keep_all.sum()) / we)
-        stats.records_returned = geo.n_records if geo is not None else (
-            len(next(iter(extras.values()))) if extras else 0
-        )
+                geo = None
+            extras = {k: v[:we] for k, v in extra_all.items()}
+            if do_compact and geo is not None:
+                extras = {k: v[keep_all] for k, v in extras.items()}
+            if filter is not None and we:
+                obs.observe("filter.selectivity", float(keep_all.sum()) / we)
+            stats.records_returned = geo.n_records if geo is not None else (
+                len(next(iter(extras.values()))) if extras else 0
+            )
         return geo, extras, stats
 
     # ---------------------------------------------- whole-row-group decode

@@ -280,7 +280,7 @@ class SpatialDatasetScanner:
         ``scan.dataset`` span with one ``shard`` child span per surviving
         shard (worker threads inherit the span context), and on return
         records the end-to-end latency histogram, the
-        ``scan.host_cpu_s_per_gb`` gauge and the shard-level pruned-bytes
+        ``scan.host_cpu_s_per_gb`` histogram and the shard-level pruned-bytes
         counter. Telemetry off is the plain, allocation-identical path.
         """
         if device not in ("cuda", "cpu", "host"):
@@ -308,8 +308,8 @@ class SpatialDatasetScanner:
         obs.observe("scan.dataset_latency_s", wall)
         scanned_gb = stats.bytes_read / 1e9
         if scanned_gb > 0:
-            # the aggregate wins over the per-shard values set mid-scan
-            obs.gauge("scan.host_cpu_s_per_gb", cpu / scanned_gb)
+            # the whole scan's value, beside those its shards' reads observe
+            obs.observe("scan.host_cpu_s_per_gb", cpu / scanned_gb)
         return geo, extras, stats
 
     def _scan_impl(self, bbox, columns, refine, parallel, coalesce, device,

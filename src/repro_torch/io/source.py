@@ -19,8 +19,6 @@ import os
 from dataclasses import dataclass
 from typing import Protocol, runtime_checkable
 
-from repro_torch import obs
-
 
 @dataclass
 class SourceStats:
@@ -96,10 +94,9 @@ class LocalFileSource:
         return os.fstat(self._fh.fileno()).st_size
 
     def readinto_at(self, offset: int, buf) -> int:
-        with obs.timed("io.read_s"):
-            self._fh.seek(offset)
-            self.stats.requests += 1
-            got = self._fh.readinto(buf)
+        self._fh.seek(offset)
+        self.stats.requests += 1
+        got = self._fh.readinto(buf)
         self.stats.bytes_fetched += int(got or 0)
         return int(got or 0)
 

@@ -226,79 +226,83 @@ def build_page_stream(plans) -> PageStream:
     value becomes either an *anchor* (page first value, escaped raw value,
     or any raw-mode value — token width W, starts a segment) or an inline
     n-bit delta token. Total payload must stay under ``_MAX_LAUNCH_BITS``
-    (use :func:`decode_pages`, which chunks automatically).
+    (use :func:`decode_pages`, which chunks automatically). Traced as the
+    ``stream.build`` span.
     """
     plans = list(plans)
-    widths = {p.width for p in plans if p.n_values}
-    if len(widths) > 1:
-        raise ValueError(f"mixed widths in one page stream: {sorted(widths)}")
-    width = widths.pop() if widths else 32
+    with (obs.span("stream.build", cat="plan", pages=len(plans),
+                   values=sum(p.n_values for p in plans))
+          if obs.enabled() else obs.NULL_SPAN):
+        widths = {p.width for p in plans if p.n_values}
+        if len(widths) > 1:
+            raise ValueError(f"mixed widths in one page stream: {sorted(widths)}")
+        width = widths.pop() if widths else 32
 
-    word_base = 0  # uint64 words placed so far
-    wparts: list[np.ndarray] = []
-    offp: list[np.ndarray] = []
-    nbp: list[np.ndarray] = []
-    anchp: list[np.ndarray] = []
-    counts: list[int] = []
-    for p in plans:
-        counts.append(p.n_values)
-        if p.n_values == 0:
-            continue
-        base_bit = word_base * 64
-        w = p.words[:-1]  # drop the all-zero spill word; re-guarded globally
-        cnt, W = p.n_values, p.width
-        if p.n == 0:  # raw mode: every value a W-bit anchor
-            off = base_bit + HEADER_BITS + W * np.arange(cnt, dtype=np.int64)
-            nb = np.full(cnt, W, np.int64)
-            an = np.ones(cnt, np.int64)
-        else:
-            off = np.empty(cnt, np.int64)
-            nb = np.empty(cnt, np.int64)
-            an = np.zeros(cnt, np.int64)
-            off[0], nb[0], an[0] = base_bit + HEADER_BITS, W, 1
-            if cnt > 1:
-                # escaped deltas read the raw value after the marker
-                off[1:] = base_bit + np.where(p.flags, p.offsets + p.n, p.offsets)
-                nb[1:] = np.where(p.flags, W, p.n)
-                an[1:] = p.flags
-        offp.append(off)
-        nbp.append(nb)
-        anchp.append(an)
-        word_base += len(w)
-        wparts.append(w)
+        word_base = 0  # uint64 words placed so far
+        wparts: list[np.ndarray] = []
+        offp: list[np.ndarray] = []
+        nbp: list[np.ndarray] = []
+        anchp: list[np.ndarray] = []
+        counts: list[int] = []
+        for p in plans:
+            counts.append(p.n_values)
+            if p.n_values == 0:
+                continue
+            base_bit = word_base * 64
+            w = p.words[:-1]  # drop the all-zero spill word; re-guarded globally
+            cnt, W = p.n_values, p.width
+            if p.n == 0:  # raw mode: every value a W-bit anchor
+                off = base_bit + HEADER_BITS + W * np.arange(cnt, dtype=np.int64)
+                nb = np.full(cnt, W, np.int64)
+                an = np.ones(cnt, np.int64)
+            else:
+                off = np.empty(cnt, np.int64)
+                nb = np.empty(cnt, np.int64)
+                an = np.zeros(cnt, np.int64)
+                off[0], nb[0], an[0] = base_bit + HEADER_BITS, W, 1
+                if cnt > 1:
+                    # escaped deltas read the raw value after the marker
+                    off[1:] = base_bit + np.where(p.flags, p.offsets + p.n, p.offsets)
+                    nb[1:] = np.where(p.flags, W, p.n)
+                    an[1:] = p.flags
+            offp.append(off)
+            nbp.append(nb)
+            anchp.append(an)
+            word_base += len(w)
+            wparts.append(w)
 
-    total_bits = word_base * 64
-    if total_bits > _MAX_LAUNCH_BITS:
-        raise ValueError(
-            f"page stream of {total_bits} bits exceeds the per-launch cap "
-            f"of {_MAX_LAUNCH_BITS}; use decode_pages, which chunks pages "
-            "across launches and host-decodes oversized single pages")
+        total_bits = word_base * 64
+        if total_bits > _MAX_LAUNCH_BITS:
+            raise ValueError(
+                f"page stream of {total_bits} bits exceeds the per-launch cap "
+                f"of {_MAX_LAUNCH_BITS}; use decode_pages, which chunks pages "
+                "across launches and host-decodes oversized single pages")
 
-    words64 = np.concatenate(wparts) if wparts else np.zeros(0, np.uint64)
-    # LE uint32 view keeps the bit layout: stream bit b = bit b%32 of word b//32
-    words32 = np.ascontiguousarray(words64).view("<u4")
-    nw = _pow2_bucket(_round_up(len(words32) + 2, 128), 128)
-    wbuf = np.zeros(nw, np.uint32)
-    wbuf[: len(words32)] = words32
+        words64 = np.concatenate(wparts) if wparts else np.zeros(0, np.uint64)
+        # LE uint32 view keeps the bit layout: stream bit b = bit b%32 of word b//32
+        words32 = np.ascontiguousarray(words64).view("<u4")
+        nw = _pow2_bucket(_round_up(len(words32) + 2, 128), 128)
+        wbuf = np.zeros(nw, np.uint32)
+        wbuf[: len(words32)] = words32
 
-    n = int(sum(counts))
-    n_blocks = _pow2_bucket(-(-max(n, 1) // STREAM_BLOCK), 1)
-    pad = n_blocks * STREAM_BLOCK
-    off_a = np.zeros(pad, np.int64)
-    nb_a = np.full(pad, width, np.int64)   # padding: W-bit anchors at bit 0
-    an_a = np.ones(pad, np.int64)
-    if n:
-        off_a[:n] = np.concatenate(offp)
-        nb_a[:n] = np.concatenate(nbp)
-        an_a[:n] = np.concatenate(anchp)
-    shape = (n_blocks, STREAM_BLOCK)
-    return PageStream(
-        wbuf.view(np.int32),
-        off_a.astype(np.int32).reshape(shape),
-        nb_a.astype(np.int32).reshape(shape),
-        an_a.astype(np.int32).reshape(shape),
-        width, tuple(counts),
-    )
+        n = int(sum(counts))
+        n_blocks = _pow2_bucket(-(-max(n, 1) // STREAM_BLOCK), 1)
+        pad = n_blocks * STREAM_BLOCK
+        off_a = np.zeros(pad, np.int64)
+        nb_a = np.full(pad, width, np.int64)   # padding: W-bit anchors at bit 0
+        an_a = np.ones(pad, np.int64)
+        if n:
+            off_a[:n] = np.concatenate(offp)
+            nb_a[:n] = np.concatenate(nbp)
+            an_a[:n] = np.concatenate(anchp)
+        shape = (n_blocks, STREAM_BLOCK)
+        return PageStream(
+            wbuf.view(np.int32),
+            off_a.astype(np.int32).reshape(shape),
+            nb_a.astype(np.int32).reshape(shape),
+            an_a.astype(np.int32).reshape(shape),
+            width, tuple(counts),
+        )
 
 
 @dataclass
@@ -329,38 +333,40 @@ def build_refine_aux(stream: PageStream, pairs, rec_vcounts) -> RefineAux:
     ``pairs[i] = (r0, r1)``: the record range covered by the i-th x/y page
     pair (``stream.counts[2i]``/``[2i+1]`` are its value counts); records are
     indexed locally and contiguously across pairs. ``rec_vcounts[r]`` is the
-    per-axis value count of record ``r``.
+    per-axis value count of record ``r``. Traced as the ``stream.aux`` span.
     """
-    counts = np.ascontiguousarray(rec_vcounts, dtype=np.int64)
-    n_rec = len(counts)
-    total = stream.n_values
-    n_pad_vals = stream.tok_off.size
-    flag = np.zeros(n_pad_vals, np.int32)
-    flag[total:] = 1  # isolate padding into its own throwaway segments
-    x_start = np.zeros(n_rec, np.int64)
-    y_start = np.zeros(n_rec, np.int64)
-    off = 0
-    for i, (r0, r1) in enumerate(pairs):
-        c = counts[r0:r1]
-        nz = c > 0
-        starts = off + np.cumsum(c) - c
-        x_start[r0:r1] = starts
-        flag[starts[nz]] = 1
-        off += int(stream.counts[2 * i])
-        starts = off + np.cumsum(c) - c
-        y_start[r0:r1] = starts
-        flag[starts[nz]] = 1
-        off += int(stream.counts[2 * i + 1])
-    if off != total:
-        raise ValueError(f"refine aux covers {off} values, stream has {total}")
-    n_rec_pad = _pow2_bucket(max(n_rec, 1), 8)
-    end = np.zeros((n_rec_pad, 2), np.int32)
-    end[:n_rec, 0] = x_start + np.maximum(counts - 1, 0)
-    end[:n_rec, 1] = y_start + np.maximum(counts - 1, 0)
-    valid = np.zeros(n_rec_pad, bool)
-    valid[:n_rec] = counts > 0
-    return RefineAux(flag.reshape(stream.tok_off.shape), end, valid, n_rec,
-                     x_start, y_start, counts)
+    with (obs.span("stream.aux", cat="plan", records=len(rec_vcounts))
+          if obs.enabled() else obs.NULL_SPAN):
+        counts = np.ascontiguousarray(rec_vcounts, dtype=np.int64)
+        n_rec = len(counts)
+        total = stream.n_values
+        n_pad_vals = stream.tok_off.size
+        flag = np.zeros(n_pad_vals, np.int32)
+        flag[total:] = 1  # isolate padding into its own throwaway segments
+        x_start = np.zeros(n_rec, np.int64)
+        y_start = np.zeros(n_rec, np.int64)
+        off = 0
+        for i, (r0, r1) in enumerate(pairs):
+            c = counts[r0:r1]
+            nz = c > 0
+            starts = off + np.cumsum(c) - c
+            x_start[r0:r1] = starts
+            flag[starts[nz]] = 1
+            off += int(stream.counts[2 * i])
+            starts = off + np.cumsum(c) - c
+            y_start[r0:r1] = starts
+            flag[starts[nz]] = 1
+            off += int(stream.counts[2 * i + 1])
+        if off != total:
+            raise ValueError(f"refine aux covers {off} values, stream has {total}")
+        n_rec_pad = _pow2_bucket(max(n_rec, 1), 8)
+        end = np.zeros((n_rec_pad, 2), np.int32)
+        end[:n_rec, 0] = x_start + np.maximum(counts - 1, 0)
+        end[:n_rec, 1] = y_start + np.maximum(counts - 1, 0)
+        valid = np.zeros(n_rec_pad, bool)
+        valid[:n_rec] = counts > 0
+        return RefineAux(flag.reshape(stream.tok_off.shape), end, valid, n_rec,
+                         x_start, y_start, counts)
 
 
 @dataclass

@@ -10,14 +10,18 @@ One switch controls the whole subsystem::
     tracer.export("scan_trace.json", metrics=obs.snapshot())
 
 Instrumented code calls the module-level helpers (:func:`span`,
-:func:`instant`, :func:`count`, :func:`gauge`, :func:`observe`,
-:func:`timed`, :func:`submit`, :func:`fold_read_stats`). **When disabled
-(the default) every helper compiles down to one global check**: ``span`` /
-``timed`` return the shared :data:`~repro_torch.obs.trace.NULL_SPAN` singleton (no
-object is allocated, ever), the recorders return immediately, and
-:func:`submit` is a plain ``pool.submit`` — the read path's results and
-syscall sequence are bit-identical with tracing on or off (enforced by
-``tests/test_obs.py``).
+:func:`instant`, :func:`count`, :func:`observe`,
+:func:`submit`, :func:`fold_read_stats`). **When disabled (the default)
+every helper compiles down to one global check**: ``span`` returns the
+shared :data:`~repro_torch.obs.trace.NULL_SPAN` singleton, the recorders
+return immediately, and :func:`submit` is a plain ``pool.submit`` — the
+read path's results are bit-identical with tracing on or off (enforced by
+``tests/test_torch_obs.py``). A span's keyword arguments are built into a
+dict before that check, so the read path's sites check first and allocate
+nothing when off::
+
+    with obs.span("page.plan", cat="plan", values=n) if obs.enabled() else obs.NULL_SPAN:
+        ...
 
 Span context crosses threads explicitly: :func:`submit` wraps the worker
 callable in ``contextvars.copy_context().run`` so spans opened on scanner
@@ -29,13 +33,11 @@ and reader can all use it without dependency cycles.
 from __future__ import annotations
 
 import contextvars
-import time
 from contextlib import contextmanager
 
 from .metrics import (
     DEFAULT_QUANTILES,
     Counter,
-    Gauge,
     Histogram,
     MetricsRegistry,
     log_buckets,
@@ -43,10 +45,10 @@ from .metrics import (
 from .trace import NULL_SPAN, NullSpan, Span, Tracer, current_span
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NullSpan", "Span",
+    "Counter", "Histogram", "MetricsRegistry", "NullSpan", "Span",
     "Tracer", "NULL_SPAN", "DEFAULT_QUANTILES", "log_buckets",
     "current_span", "enabled", "enable", "disable", "trace", "get_tracer",
-    "get_registry", "span", "instant", "count", "gauge", "observe", "timed",
+    "get_registry", "span", "instant", "count", "observe",
     "submit", "fold_read_stats", "fold_source_stats", "snapshot",
     "percentiles",
 ]
@@ -132,38 +134,9 @@ def count(name: str, n: int = 1) -> None:
         _registry.counter(name).inc(n)
 
 
-def gauge(name: str, value) -> None:
-    if _enabled:
-        _registry.gauge(name).set(value)
-
-
 def observe(name: str, value: float, bounds=None) -> None:
     if _enabled:
         _registry.histogram(name, bounds).observe(value)
-
-
-class _Timed:
-    """Times a block into a histogram (only built when telemetry is on)."""
-
-    __slots__ = ("_name", "_t0")
-
-    def __init__(self, name: str):
-        self._name = name
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        observe(self._name, time.perf_counter() - self._t0)
-        return False
-
-
-def timed(name: str):
-    """``with obs.timed("io.read_s"):`` — histogram-observed duration."""
-    if not _enabled:
-        return NULL_SPAN
-    return _Timed(name)
 
 
 def submit(pool, fn, /, *args, **kwargs):
@@ -207,5 +180,5 @@ def percentiles(name: str, qs=DEFAULT_QUANTILES) -> dict:
 def snapshot() -> dict:
     """The metrics registry snapshot (empty shape when never enabled)."""
     if _registry is None:
-        return {"counters": {}, "gauges": {}, "histograms": {}}
+        return {"counters": {}, "histograms": {}}
     return _registry.snapshot()

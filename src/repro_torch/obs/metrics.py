@@ -1,14 +1,14 @@
-"""Metrics registry: counters, gauges, fixed-bucket latency histograms.
+"""Metrics registry: counters and fixed-bucket latency histograms.
 
 The registry turns the stack's terminal totals (:class:`ReadStats`,
 :class:`SourceStats`) and its per-event timings (range-GET latency, scan
 latency) into queryable time series:
 
 * :class:`Counter` — monotonic totals (``read.retries``,
-  ``pruned.shard_bytes``, ``jit.compiles``);
-* :class:`Gauge` — last-written values (``scan.host_cpu_s_per_gb``);
+  ``pruned.shard_bytes``, ``kernel.builds``);
 * :class:`Histogram` — fixed-bucket distributions with interpolated
-  p50/p90/p99 estimates (``scan.latency_s``, ``io.range_get_s``). Buckets
+  p50/p90/p99 estimates (``scan.latency_s``, ``scan.host_cpu_s_per_gb``,
+  ``io.range_get_s``). Buckets
   are log-spaced by default so the relative quantile error is bounded by
   one bucket ratio (~12% with the default 200 buckets over [1e-7, 1e3] s);
   exact observed min/max clamp the tails.
@@ -48,21 +48,6 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         with self._lock:
             self.value += n
-
-
-class Gauge:
-    """A last-write-wins value."""
-
-    __slots__ = ("name", "_lock", "value")
-
-    def __init__(self, name: str):
-        self.name = name
-        self._lock = threading.Lock()
-        self.value = None
-
-    def set(self, v) -> None:
-        with self._lock:
-            self.value = v
 
 
 class Histogram:
@@ -158,12 +143,11 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Named counters/gauges/histograms, created on first touch."""
+    """Named counters and histograms, created on first touch."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict[str, Counter] = {}
-        self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
 
     def counter(self, name: str) -> Counter:
@@ -172,13 +156,6 @@ class MetricsRegistry:
             if c is None:
                 c = self._counters[name] = Counter(name)
             return c
-
-    def gauge(self, name: str) -> Gauge:
-        with self._lock:
-            g = self._gauges.get(name)
-            if g is None:
-                g = self._gauges[name] = Gauge(name)
-            return g
 
     def histogram(self, name: str, bounds=None) -> Histogram:
         with self._lock:
@@ -215,10 +192,8 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         with self._lock:
             counters = dict(self._counters)
-            gauges = dict(self._gauges)
             hists = dict(self._histograms)
         return {
             "counters": {k: c.value for k, c in sorted(counters.items())},
-            "gauges": {k: g.value for k, g in sorted(gauges.items())},
             "histograms": {k: h.snapshot() for k, h in sorted(hists.items())},
         }
