@@ -20,6 +20,9 @@ Phases, each fatal on failure (nothing is caught):
    a numpy oracle computed from the generated columns, independent of both
    packages' readers. Every kernel must have launched at least once;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
+   the page stream's descriptor expansion (``csrc/stream_expand.cu``)
+   against the plain host expansion of every stream below, and the decode's
+   plain version fed that host expansion, never the card's,
    at the main path's shapes and on adversarial inputs (W = 32 and 64,
    escapes, raw pages, NaN, ±inf, ±0, denormals, NaN and all-NaN pages;
    for the decode also a 4.2 M value page with one anchor, all-anchor
@@ -75,7 +78,7 @@ Between phases 3 and 4 run the four paths added after them, in the order
     exactly against the numpy oracle in the dataset's record order (one
     global Hilbert sort split 16 ways), and its ``ReadStats`` (shards and
     pages read and total, records) against the oracle's own shard and page
-    layout. Kernels 1-3 must each launch;
+    layout. Kernels 1-3 and the expansion must each launch;
 3b. the codec path, with every launch count set to 0 just before:
     ``compress_array`` then ``decompress_array`` on the card of the Porto x
     and y columns cast to float32, exact to the bit, with the compressed
@@ -248,9 +251,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores (data sheet)
 TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak (data sheet)
-KERNEL_LIBS = ("fp_delta_decode", "segminmax_refine", "page_minmax", "flash_attention",
-               "flash_attention_sm90", "miniblock")
-FILE_KERNELS = ("fp_delta.decode_stream", "minmax.segminmax_refine", "minmax.page_minmax")
+KERNEL_LIBS = ("stream_expand", "fp_delta_decode", "segminmax_refine", "page_minmax",
+               "flash_attention", "flash_attention_sm90", "miniblock")
+FILE_KERNELS = ("fp_delta.decode_stream", "minmax.segminmax_refine", "minmax.page_minmax",
+                "fp_delta.expand_stream")
 CODEC_KERNELS = ("fp_delta.encode_blocks", "fp_delta.decode_blocks")
 LM_KERNELS = ("flash_attention.flash_attention_sm90",)
 F32_FLASH = "flash_attention.flash_attention_f32"   # the float32 route: its own forward
@@ -702,34 +706,33 @@ def anchor_free_plan(rng, dtype, n: int):
 
 
 def decode_cases(rng):
-    """Adversarial streams for kernel 1 beyond the main and mixed-page ones,
-    as (name, words32, tok_off, nbits, anchor, width): per width, a 4.2 M
-    value page with one anchor (the look-back chains over about 2,000
-    tiles), an all-anchor stream of raw pages, one stream block (half a
-    tile), and 1,057 and 2,115 blocks (partial last tiles; 529 and 1,058
-    tiles, which no grid of whole SMs divides) cut from a longer stream."""
+    """Adversarial streams for kernel 1 and the expansion beyond the main
+    and mixed-page ones, as (name, page stream, blocks kept or None): per
+    width, a 4.2 M value page with one anchor (the look-back chains over
+    about 2,000 tiles), an all-anchor stream of raw pages, and a longer
+    stream of escaped, NaN and wild pages before an anchor-free one, whole
+    and cut to one stream block (half a tile), 1,057 and 2,115 blocks
+    (partial last tiles; 529 and 1,058 tiles, which no grid of whole SMs
+    divides)."""
     from repro_torch.core.fp_delta import fp_delta_encode, fp_delta_plan
     from repro_torch.core.pages import PageMeta, page_stream_plan
-    from repro_torch.kernels.fp_delta import build_page_stream, stream_from_numpy
+    from repro_torch.kernels.fp_delta import build_page_stream
 
     out = []
     for dt in (np.float32, np.float64):
         wname = f"w{np.dtype(dt).itemsize * 8}"
-        d = stream_from_numpy(build_page_stream([anchor_free_plan(rng, dt, 4_200_000)]),
-                              device=DEVICE)
-        out.append((f"long_carry_chain_{wname}", d.words32, d.tok_off, d.nbits, d.anchor, d.width))
+        out.append((f"long_carry_chain_{wname}",
+                    build_page_stream([anchor_free_plan(rng, dt, 4_200_000)]), None))
         raw = rng.normal(-8.6, 1.0, 300_000).astype(dt)
         meta = PageMeta(0, raw.nbytes, len(raw), 0, 0, 0.0, 0.0, "raw", 0, 0)
         plan = page_stream_plan(raw.tobytes(), meta, np.dtype(dt), "none")
-        d = stream_from_numpy(build_page_stream([plan, plan]), device=DEVICE)
-        out.append((f"all_anchors_{wname}", d.words32, d.tok_off, d.nbits, d.anchor, d.width))
+        out.append((f"all_anchors_{wname}", build_page_stream([plan, plan]), None))
         plans = [fp_delta_plan(fp_delta_encode(p)[0], len(p), np.dtype(dt))
                  for p in adversarial_pages(rng, dt, 3000)]
         long = build_page_stream(plans + [anchor_free_plan(rng, dt, 2200 * 1024)])
-        d = stream_from_numpy(long, device=DEVICE)
+        out.append((f"mixed_long_{wname}", long, None))
         for nb in (1, 1057, 2115):
-            out.append((f"n_blocks_{nb}_{wname}", d.words32,
-                        *(t[:nb].contiguous() for t in (d.tok_off, d.nbits, d.anchor)), d.width))
+            out.append((f"n_blocks_{nb}_{wname}", long, nb))
     return out
 
 
@@ -788,6 +791,7 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
     import torch
 
     from repro_torch.kernels.fp_delta import kernel as fk, ref as fr, stream_from_numpy
+    from repro_torch.kernels.fp_delta.ops import expand_stream_ref
     from repro_torch.kernels.minmax import bbox_query_keys, keys64
     from repro_torch.kernels.minmax import kernel as mk, ref as mr
 
@@ -796,42 +800,89 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
     stream, aux, dur, ebounds = rg0_stream(path, oracle)
     table = []
 
-    # ---- kernel 1: page-stream decode
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+    # ---- the expansion: each stream's token descriptors written on the card
     ds = stream_from_numpy(stream, aux, device=DEVICE)
     cases = [("main", ds)]
+    streams = [("main", stream, None)]
     for dt in (np.float32, np.float64):
         s, a, _ = adversarial_stream(rng, dt)
-        cases.append((f"adversarial_w{np.dtype(dt).itemsize * 8}",
-                      stream_from_numpy(s, a, device=DEVICE)))
-    checks = [(name, (d.words32, d.tok_off, d.nbits, d.anchor, d.width)) for name, d in cases]
-    checks += [(name, tuple(args)) for name, *args in decode_cases(np.random.default_rng(17))]
+        name = f"adversarial_w{np.dtype(dt).itemsize * 8}"
+        cases.append((name, stream_from_numpy(s, a, device=DEVICE)))
+        streams.append((name, s, None))
+    streams += decode_cases(np.random.default_rng(17))
+    checks, plain = [], {}  # kernel 1's operands from the card, and from the host
+    bad, err = 0, 0.0
+    uploaded = dict(cases)
+    for name, s, nb in streams:
+        d = uploaded[name] if name in uploaded else stream_from_numpy(s, device=DEVICE)
+        cut = slice(None) if nb is None else slice(0, nb)
+        host = (s.tok_off, s.nbits, s.anchor)  # the plain host expansion
+        card = (d.tok_off, d.nbits, d.anchor)
+        torch.cuda.synchronize()
+        if nb is None:
+            m = 0
+            for c, h in zip(card, host):
+                mi, ei = mismatches(c, put(h))
+                m, err = m + mi, max(err, ei)
+            emit({"check": "fp_delta.expand_stream", "case": name,
+                  "positions": int(d.tok_off.numel()), "pages": int(s.page_table.shape[1]),
+                  "escapes": int(s.escapes.size), "width": s.width, "mismatches": m})
+            bad += m
+        checks.append((name, (d.words32, *(t[cut].contiguous() for t in card), d.width)))
+        plain[name] = (d.words32, *(put(h[cut]) for h in host), s.width)
+    n = ds.n_values
+    table_t, esc_t = put(stream.page_table), put(stream.escapes)
+    positions = stream.shape[0] * stream.shape[1]
+
+    def expand():
+        return fk.expand_stream(table_t, esc_t, n, stream.width, stream.shape[0])
+
+    k_ms = cuda_ms(expand)
+    k_dev = device_ms(expand)
+    p_ms = cuda_ms(lambda: expand_stream_ref(stream), iters=3, warmup=1)
+    bytes_moved = 12 * positions + stream.page_table.nbytes + stream.escapes.nbytes
+    expand_row = dict(name="fp_delta.expand_stream", route="cuda",
+                      source="src/repro_torch/csrc/stream_expand.cu",
+                      replaces="src/repro/kernels/fp_delta/ops.py::build_page_stream (host)",
+                      mismatches=bad, max_abs_err=err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                      bytes=bytes_moved, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+                      bound_by="bytes", library_ms=None,
+                      shape={"values": n, "positions": positions,
+                             "pages": int(stream.page_table.shape[1]),
+                             "escapes": int(stream.escapes.size), "width": stream.width})
+
+    # ---- kernel 1: page-stream decode, held against its plain version on
+    # the host's expansion of the same stream
     bad, err = 0, 0.0
 
-    def held(name, args, got) -> None:
+    def held(label, name, args, got) -> None:
         nonlocal bad, err
-        m, e = mismatches(got, fr.decode_stream_ref(*args))
-        emit({"check": "fp_delta.decode_stream", "case": name, "positions": int(args[1].numel()),
+        m, e = mismatches(got, fr.decode_stream_ref(*plain[name]))
+        emit({"check": "fp_delta.decode_stream", "case": label, "positions": int(args[1].numel()),
               "width": args[4], "mismatches": m})
         bad, err = bad + m, max(err, e)
 
     for name, args in checks:
         got = fk.decode_stream(*args)
         torch.cuda.synchronize()
-        held(name, args, got)
+        held(name, name, args, got)
     # two calls queued back to back, then four threads at once (the scanner's
     # pattern), three rounds: each call zeroes its own tile statuses
-    two = [checks[0][1], checks[3][1]]
-    outs = [fk.decode_stream(*a) for a in two]
+    two = [checks[0], checks[3]]
+    outs = [fk.decode_stream(*a) for _, a in two]
     torch.cuda.synchronize()
-    for i, (a, got) in enumerate(zip(two, outs)):
-        held(f"back_to_back_{i}", a, got)
-    four = [checks[i][1] for i in (0, 1, 2, 3)]
+    for i, ((name, a), got) in enumerate(zip(two, outs)):
+        held(f"back_to_back_{i}", name, a, got)
+    four = [checks[i] for i in (0, 1, 2, 3)]
     with ThreadPoolExecutor(max_workers=4) as pool:
         for r in range(3):
-            outs = list(pool.map(lambda a: fk.decode_stream(*a), four))
+            outs = list(pool.map(lambda c: fk.decode_stream(*c[1]), four))
             torch.cuda.synchronize()
-            for i, (a, got) in enumerate(zip(four, outs)):
-                held(f"four_threads_round{r}_{i}", a, got)
+            for i, ((name, a), got) in enumerate(zip(four, outs)):
+                held(f"four_threads_round{r}_{i}", name, a, got)
     args = (ds.words32, ds.tok_off, ds.nbits, ds.anchor, ds.width)
     n = ds.n_values
     # the packed words up to the end of the last token (the buffer's pow2 tail is not read)
@@ -946,6 +997,7 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
                       bytes=bytes_moved, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
                       bound_by="bytes", library_ms=l_ms,
                       shape={"values": len(dur), "pages": n_pages}))
+    table.append(expand_row)
     return table
 
 
@@ -2800,7 +2852,8 @@ def train_child(argv) -> int:
 
     train.main(argv)
     emit({"train_child": {"launches": {FILE_KERNELS[0]: fk.decode_stream.launches,
-                                       FILE_KERNELS[1]: mk.segminmax_refine.launches}}})
+                                       FILE_KERNELS[1]: mk.segminmax_refine.launches,
+                                       FILE_KERNELS[3]: fk.expand_stream.launches}}})
     return 0
 
 
@@ -3177,13 +3230,14 @@ def main() -> int:
     _build.build_all(KERNEL_LIBS)
     emit({"build_s": time.perf_counter() - t_start})
     for lib in ("flash_attention_sm90", "flash_attention", "fp_delta_decode", "miniblock",
-                "page_minmax"):
+                "page_minmax", "stream_expand"):
         ptxas = [ln.strip() for ln in _build.logs.get(lib, "").splitlines()
                  if any(w in ln for w in ("entry function", "spill", "Used", "arning"))]
         if ptxas:
             emit({f"ptxas_{lib}": ptxas})
-    counters = [fk.decode_stream, mk.segminmax_refine, mk.page_minmax, fk.encode_blocks,
-                fk.decode_blocks, ak.flash_attention_sm90, ak.flash_attention_f32]
+    counters = [fk.decode_stream, mk.segminmax_refine, mk.page_minmax, fk.expand_stream,
+                fk.encode_blocks, fk.decode_blocks, ak.flash_attention_sm90,
+                ak.flash_attention_f32]
     names = list(FILE_KERNELS + CODEC_KERNELS + LM_KERNELS) + [F32_FLASH]
     for c, name in zip(counters, names):
         c.kname = name

@@ -1,4 +1,5 @@
-"""Wrappers of the FP-delta CUDA kernels: the page-stream decode
+"""Wrappers of the FP-delta CUDA kernels: the page stream's descriptor
+expansion (``csrc/stream_expand.cu``), the page-stream decode
 (``csrc/fp_delta_decode.cu``) and the miniblock codec (``csrc/miniblock.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
@@ -32,6 +33,48 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev: torch.device, sh
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def expand_stream(page_table, escapes, n_values: int, width: int, n_blocks: int):
+    """Expand a compact page stream into the decode's token descriptors on
+    the card.
+
+    ``page_table``: (5, n_pages) int32, rows value start, value count, base
+    bit, token width n (0: raw mode), first escape index, one column a page
+    that holds values, in stream order; ``escapes``: (n_escapes,) int32
+    ascending stream positions of escaped values. Returns ``(tok_off, nbits,
+    anchor)``, each (n_blocks, STREAM_BLOCK) int32, equal to
+    :func:`.ops.expand_stream_ref` bit for bit, padding tail included.
+    """
+    dev = page_table.device
+    if dev.type != "cuda":
+        raise ValueError("expand_stream kernel needs CUDA tensors")
+    if width not in (32, 64):
+        raise ValueError(f"width must be 32 or 64, got {width}")
+    if page_table.dim() != 2 or page_table.shape[0] != 5:
+        raise ValueError(f"page_table must be (5, n_pages), got {tuple(page_table.shape)}")
+    n_pages = page_table.shape[1]
+    _check(page_table, "page_table", torch.int32, dev, (5, n_pages))
+    _check(escapes, "escapes", torch.int32, dev, (escapes.numel(),))
+    if n_blocks < 1 or n_values < 0 or n_values > n_blocks * STREAM_BLOCK:
+        raise ValueError(f"{n_values} values do not fit {n_blocks} blocks")
+    if (n_pages == 0) != (n_values == 0):
+        raise ValueError(f"{n_pages} pages for {n_values} values")
+    if n_blocks * STREAM_BLOCK >= 2 ** 31:
+        raise ValueError(f"{n_blocks} blocks exceed int32 positions")
+    outs = tuple(torch.empty((n_blocks, STREAM_BLOCK), dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    fn = _build.entry("stream_expand", "sx_expand_stream",
+                      [_P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, _P, _P, _P, _P])
+    err = fn(page_table.data_ptr(), n_pages, escapes.data_ptr(), escapes.numel(), n_values,
+             width, n_blocks, *(t.data_ptr() for t in outs), _stream(dev))
+    _build.check(_build.load("stream_expand"), "sx", err, "expand_stream launch")
+    _build.bump(expand_stream)
+    return outs
+
+
+expand_stream.launches = 0
 
 
 def decode_stream(words32, tok_off, nbits, anchor, width: int) -> torch.Tensor:

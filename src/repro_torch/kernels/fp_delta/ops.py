@@ -12,23 +12,30 @@ Page stream: batched device execution of host-resolved ``FPDeltaPlan``s (the
 paper-exact page format of :mod:`repro_torch.core.fp_delta`), consumed by
 ``SpatialParquetReader.read_columnar``. The host has done the sequential
 part — escape resolution — so many pages concatenate into one flat value
-stream (:func:`build_page_stream`): per-value token bit offsets, token
-widths, and anchor flags. One decode launch covers a whole chunk of a row
-group. :func:`decode_refine_stream` chains the decode with the per-record
-order-key min/max and the bbox survivor test of
+stream (:func:`build_page_stream`), kept compact: the packed words, a table
+of a few numbers a page, and the positions of the escaped values. Every
+value's token bit offset, token width and anchor flag is a closed form of
+these; on CUDA a kernel of its own writes them on the card
+(``csrc/stream_expand.cu``), and the plain host expansion
+(:func:`expand_stream_ref`) serves the CPU path and the tests. One decode
+launch covers a whole chunk of a row group. :func:`decode_refine_stream`
+chains the decode with the per-record order-key min/max and the bbox
+survivor test of
 :mod:`repro_torch.kernels.minmax`, so only the record mask and then the
 surviving values (:func:`gather_stream_values`) leave the device.
 
-Operands are built as numpy arrays on the host (byte for byte the arrays
-the JAX package builds) and moved to the device once by
-:func:`stream_from_numpy`. Every device function follows the device of its
-tensors: CUDA tensors launch the kernels, CPU tensors run the plain versions.
+Operands are built as numpy arrays on the host and moved to the device once
+by :func:`stream_from_numpy`; the expanded descriptors are byte for byte the
+arrays the JAX package builds on its host. Every device function follows the
+device of its tensors: CUDA tensors launch the kernels, CPU tensors run the
+plain versions.
 """
 
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -205,69 +212,117 @@ def _pow2_bucket(x: int, floor: int) -> int:
 
 @dataclass
 class PageStream:
-    """Many pages concatenated into one device-decodable value stream."""
+    """Many pages concatenated into one device-decodable value stream, in
+    compact form: each page's packed words, a table of the pages and the
+    positions of the escaped values.
 
-    words32: np.ndarray   # (n_words,) int32, n_words % 128 == 0, >= 2 spill words
-    tok_off: np.ndarray   # (n_blocks, STREAM_BLOCK) int32 token bit offsets
-    nbits: np.ndarray     # (n_blocks, STREAM_BLOCK) int32 token widths [1, 64]
-    anchor: np.ndarray    # (n_blocks, STREAM_BLOCK) int32 0/1 (padding = 1)
-    width: int            # 32 or 64 (uniform across the stream)
+    Every token descriptor the decode needs is a closed form of these. For
+    a page at stream position ``S`` with base bit ``B`` (its first word's
+    bit address), token width ``n`` and value width ``W``, value ``0`` is a
+    W-bit anchor at ``B + 8``; in raw mode (``n == 0``) value ``i`` is a
+    W-bit anchor at ``B + 8 + W*i``; otherwise value ``i = j + 1`` (delta
+    token ``j``, ``E_j`` escapes before it) is an n-bit delta at ``B + 8 + W
+    + n*j + W*E_j``, or, when escaped, a W-bit anchor ``n`` bits further on
+    (the raw value after the marker). The padding tail is W-bit anchors at
+    bit 0. The CUDA path expands them on the card (``csrc/stream_expand.cu``,
+    in :func:`stream_from_numpy`); :func:`expand_stream_ref` is the plain
+    host expansion, behind the ``tok_off``/``nbits``/``anchor`` properties.
+    """
+
+    word_parts: tuple[np.ndarray, ...]  # each page's packed uint64 words, spill
+                                        # word dropped, in stream order
+    n_words: int            # int32 words of the padded buffer: a multiple of 128,
+                            # >= 2 zero spill words after the last page
+    page_table: np.ndarray  # (5, n_pages) int32, rows: value start, value
+                            # count, base bit, n (0: raw), first escape index;
+                            # pages with no values have no column
+    escapes: np.ndarray     # (n_escapes,) int32 ascending stream positions of
+                            # escaped values
+    width: int              # 32 or 64 (uniform across the stream)
     counts: tuple[int, ...]  # per-page value counts (output split points)
+    shape: tuple[int, int]  # (n_blocks, STREAM_BLOCK) of the padded stream
 
     @property
     def n_values(self) -> int:
         return sum(self.counts)
 
+    @cached_property
+    def words32(self) -> np.ndarray:
+        """(n_words,) int32: the pages' words one after another, then zeros
+        (host copy; the CUDA path copies each page to the card itself)."""
+        wbuf = np.zeros(self.n_words // 2, "<u8")
+        at = 0
+        for w in self.word_parts:
+            wbuf[at:at + len(w)] = w
+            at += len(w)
+        # the LE uint32 view keeps the bit layout: stream bit b = bit b%32 of word b//32
+        return wbuf.view(np.int32)
+
+    @cached_property
+    def _expanded(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return expand_stream_ref(self)
+
+    @property
+    def tok_off(self) -> np.ndarray:
+        """(n_blocks, STREAM_BLOCK) int32 token bit offsets (host expansion)."""
+        return self._expanded[0]
+
+    @property
+    def nbits(self) -> np.ndarray:
+        """(n_blocks, STREAM_BLOCK) int32 token widths in [1, 64] (host expansion)."""
+        return self._expanded[1]
+
+    @property
+    def anchor(self) -> np.ndarray:
+        """(n_blocks, STREAM_BLOCK) int32 0/1, padding 1 (host expansion)."""
+        return self._expanded[2]
+
 
 def build_page_stream(plans) -> PageStream:
-    """Concatenate resolved plans into one :class:`PageStream`.
+    """Concatenate resolved plans into one compact :class:`PageStream`.
 
-    Page payloads are placed word-aligned in a shared uint32 buffer; each
-    value becomes either an *anchor* (page first value, escaped raw value,
-    or any raw-mode value — token width W, starts a segment) or an inline
-    n-bit delta token. Total payload must stay under ``_MAX_LAUNCH_BITS``
-    (use :func:`decode_pages`, which chunks automatically). Traced as the
-    ``stream.build`` span.
+    Each page keeps its packed words (placed word-aligned, one page after
+    another, where the stream is copied), adds a column to the page table
+    and its escaped values' positions to the escape array: the host work is
+    a few numbers a page and one pass over its escape flags, never an array
+    of one entry a value, and no copy of the payload. Total payload must
+    stay under ``_MAX_LAUNCH_BITS`` (use :func:`decode_pages`, which chunks
+    automatically). Traced as the ``stream.build`` span.
     """
     plans = list(plans)
     with (obs.span("stream.build", cat="plan", pages=len(plans),
                    values=sum(p.n_values for p in plans))
-          if obs.enabled() else obs.NULL_SPAN):
+          if obs.enabled() else obs.NULL_SPAN) as sp:
         widths = {p.width for p in plans if p.n_values}
         if len(widths) > 1:
             raise ValueError(f"mixed widths in one page stream: {sorted(widths)}")
         width = widths.pop() if widths else 32
 
         word_base = 0  # uint64 words placed so far
+        v_start = 0
+        n_esc = 0
         wparts: list[np.ndarray] = []
-        offp: list[np.ndarray] = []
-        nbp: list[np.ndarray] = []
-        anchp: list[np.ndarray] = []
+        cols: list[tuple[int, int, int, int, int]] = []
+        escp: list[np.ndarray] = []
         counts: list[int] = []
         for p in plans:
             counts.append(p.n_values)
             if p.n_values == 0:
                 continue
-            base_bit = word_base * 64
             w = p.words[:-1]  # drop the all-zero spill word; re-guarded globally
             cnt, W = p.n_values, p.width
-            if p.n == 0:  # raw mode: every value a W-bit anchor
-                off = base_bit + HEADER_BITS + W * np.arange(cnt, dtype=np.int64)
-                nb = np.full(cnt, W, np.int64)
-                an = np.ones(cnt, np.int64)
-            else:
-                off = np.empty(cnt, np.int64)
-                nb = np.empty(cnt, np.int64)
-                an = np.zeros(cnt, np.int64)
-                off[0], nb[0], an[0] = base_bit + HEADER_BITS, W, 1
-                if cnt > 1:
-                    # escaped deltas read the raw value after the marker
-                    off[1:] = base_bit + np.where(p.flags, p.offsets + p.n, p.offsets)
-                    nb[1:] = np.where(p.flags, W, p.n)
-                    an[1:] = p.flags
-            offp.append(off)
-            nbp.append(nb)
-            anchp.append(an)
+            cols.append((v_start, cnt, word_base * 64, p.n, n_esc))
+            if p.n and cnt > 1:
+                esc = np.flatnonzero(p.flags)
+                # the closed form holds for every plan the resolvers return
+                # from a well-formed payload; check it at the last token
+                last = HEADER_BITS + W + p.n * (cnt - 2) + W * (len(esc) - bool(p.flags[-1]))
+                if int(p.offsets[-1]) != last:
+                    raise ValueError("page's token offsets do not follow its escapes")
+                if len(esc):
+                    escp.append(esc + (v_start + 1))  # token j is value j + 1
+                    n_esc += len(esc)
+            v_start += cnt
             word_base += len(w)
             wparts.append(w)
 
@@ -278,31 +333,49 @@ def build_page_stream(plans) -> PageStream:
                 f"of {_MAX_LAUNCH_BITS}; use decode_pages, which chunks pages "
                 "across launches and host-decodes oversized single pages")
 
-        words64 = np.concatenate(wparts) if wparts else np.zeros(0, np.uint64)
-        # LE uint32 view keeps the bit layout: stream bit b = bit b%32 of word b//32
-        words32 = np.ascontiguousarray(words64).view("<u4")
-        nw = _pow2_bucket(_round_up(len(words32) + 2, 128), 128)
-        wbuf = np.zeros(nw, np.uint32)
-        wbuf[: len(words32)] = words32
+        nw = _pow2_bucket(_round_up(2 * word_base + 2, 128), 128)
 
-        n = int(sum(counts))
-        n_blocks = _pow2_bucket(-(-max(n, 1) // STREAM_BLOCK), 1)
-        pad = n_blocks * STREAM_BLOCK
-        off_a = np.zeros(pad, np.int64)
-        nb_a = np.full(pad, width, np.int64)   # padding: W-bit anchors at bit 0
-        an_a = np.ones(pad, np.int64)
-        if n:
-            off_a[:n] = np.concatenate(offp)
-            nb_a[:n] = np.concatenate(nbp)
-            an_a[:n] = np.concatenate(anchp)
-        shape = (n_blocks, STREAM_BLOCK)
-        return PageStream(
-            wbuf.view(np.int32),
-            off_a.astype(np.int32).reshape(shape),
-            nb_a.astype(np.int32).reshape(shape),
-            an_a.astype(np.int32).reshape(shape),
-            width, tuple(counts),
-        )
+        table = np.array(cols, np.int32).reshape(-1, 5).T.copy()
+        escapes = (np.concatenate(escp).astype(np.int32) if escp
+                   else np.zeros(0, np.int32))
+        n_blocks = _pow2_bucket(-(-max(v_start, 1) // STREAM_BLOCK), 1)
+        sp.add(escapes=n_esc)
+        return PageStream(tuple(wparts), nw, table, escapes, width, tuple(counts),
+                          (n_blocks, STREAM_BLOCK))
+
+
+def expand_stream_ref(stream: PageStream) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The plain host expansion of a compact stream: ``(tok_off, nbits,
+    anchor)``, each (n_blocks, STREAM_BLOCK) int32, byte for byte the arrays
+    the JAX package's ``build_page_stream`` builds. Counted in
+    ``stream.expand.host_values`` (positions, padding included)."""
+    n_blocks, block = stream.shape
+    pad = n_blocks * block
+    W = stream.width
+    off = np.zeros(pad, np.int64)
+    nb = np.full(pad, W, np.int64)   # padding: W-bit anchors at bit 0
+    an = np.ones(pad, np.int64)
+    is_esc = np.zeros(pad, bool)
+    is_esc[stream.escapes] = True
+    for v0, cnt, base, tn, _ in stream.page_table.T.astype(np.int64):
+        first = base + HEADER_BITS
+        if tn == 0:  # raw mode: every value a W-bit anchor
+            off[v0:v0 + cnt] = first + W * np.arange(cnt, dtype=np.int64)
+            continue
+        off[v0] = first
+        if cnt > 1:
+            # delta token j is value j + 1; an escaped one reads the raw value
+            # after the marker
+            esc = is_esc[v0 + 1:v0 + cnt]
+            before = np.cumsum(esc) - esc
+            off[v0 + 1:v0 + cnt] = (first + W + tn * np.arange(cnt - 1, dtype=np.int64)
+                                    + W * before + tn * esc)
+            nb[v0 + 1:v0 + cnt] = np.where(esc, W, tn)
+            an[v0 + 1:v0 + cnt] = esc
+    obs.count("stream.expand.host_values", pad)
+    shape = (n_blocks, block)
+    return (off.astype(np.int32).reshape(shape), nb.astype(np.int32).reshape(shape),
+            an.astype(np.int32).reshape(shape))
 
 
 @dataclass
@@ -340,7 +413,7 @@ def build_refine_aux(stream: PageStream, pairs, rec_vcounts) -> RefineAux:
         counts = np.ascontiguousarray(rec_vcounts, dtype=np.int64)
         n_rec = len(counts)
         total = stream.n_values
-        n_pad_vals = stream.tok_off.size
+        n_pad_vals = stream.shape[0] * stream.shape[1]
         flag = np.zeros(n_pad_vals, np.int32)
         flag[total:] = 1  # isolate padding into its own throwaway segments
         x_start = np.zeros(n_rec, np.int64)
@@ -365,7 +438,7 @@ def build_refine_aux(stream: PageStream, pairs, rec_vcounts) -> RefineAux:
         end[:n_rec, 1] = y_start + np.maximum(counts - 1, 0)
         valid = np.zeros(n_rec_pad, bool)
         valid[:n_rec] = counts > 0
-        return RefineAux(flag.reshape(stream.tok_off.shape), end, valid, n_rec,
+        return RefineAux(flag.reshape(stream.shape), end, valid, n_rec,
                          x_start, y_start, counts)
 
 
@@ -388,20 +461,47 @@ class DeviceStream:
 
 def stream_from_numpy(stream: PageStream, aux: RefineAux | None = None, *,
                       device="cuda") -> DeviceStream:
-    """Move a host-built stream (and refine aux) to ``device`` as tensors."""
+    """Move a host-built stream (and refine aux) to ``device`` as tensors.
+
+    On CUDA the compact stream is copied (each page's words into its place,
+    zeros after the last page, then the page table and the escape positions)
+    and ``csrc/stream_expand.cu`` writes the token descriptors on the card
+    (span ``device.expand_launch``, beside ``device.h2d``). On CPU the plain
+    host expansion is copied.
+    """
     dev = torch_device(device)
+    on_card = dev.type == "cuda"
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     with obs.span("device.h2d", cat="transfer", values=stream.n_values):
-        ds = DeviceStream(put(stream.words32), put(stream.tok_off),
-                          put(stream.nbits), put(stream.anchor),
-                          stream.width, stream.n_values)
+        if on_card:
+            # a pageable copy a page: on the H100's host these beat one host
+            # copy of the chunk into pinned memory and one DMA (CUDA
+            # overlaps its staging with the transfer)
+            words = torch.empty(stream.n_words, dtype=torch.int32, device=dev)
+            w64, at = words.view(torch.int64), 0
+            for w in stream.word_parts:
+                w64[at:at + len(w)].copy_(torch.from_numpy(w.view(np.int64)))
+                at += len(w)
+            w64[at:].zero_()
+            table, escapes = put(stream.page_table), put(stream.escapes)
+        else:
+            words = put(stream.words32)
+            desc = (put(stream.tok_off), put(stream.nbits), put(stream.anchor))
         if aux is not None:
-            n = aux.n_records
-            ds.x_start, ds.y_start = put(aux.x_start), put(aux.y_start)
-            ds.counts, ds.valid = put(aux.counts), put(aux.valid[:n])
+            rec = (put(aux.x_start), put(aux.y_start), put(aux.counts),
+                   put(aux.valid[:aux.n_records]))
+    if on_card:
+        with obs.span("device.expand_launch", cat="device", values=stream.n_values,
+                      escapes=len(stream.escapes)):
+            desc = kernel.expand_stream(table, escapes, stream.n_values, stream.width,
+                                        stream.shape[0])
+            obs.count("stream.expand.device_values", desc[0].numel())
+    ds = DeviceStream(words, *desc, stream.width, stream.n_values)
+    if aux is not None:
+        ds.x_start, ds.y_start, ds.counts, ds.valid = rec
     return ds
 
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core.fp_delta import fp_delta_encode, fp_delta_plan
 from repro_torch.core.pages import PageMeta, page_stream_plan
 from repro_torch.core.reader import SpatialParquetReader
@@ -18,9 +19,10 @@ from repro_torch.core.writer import write_file
 from repro_torch.data.synthetic import porto_taxi_like
 from repro_torch.kernels import fp_delta as tfd
 from repro_torch.kernels import minmax as tmm
-from repro_torch.kernels.fp_delta import kernel as fkernel, ref as fref
+from repro_torch.kernels.fp_delta import kernel as fkernel, ops as fops, ref as fref
 from repro_torch.kernels.minmax import kernel as mkernel, ref as mref
 from repro_torch.models import flatten_with_paths
+from stream_cases import CASES, port_plans, random_pages, stored_pages
 
 pytestmark = pytest.mark.cuda
 
@@ -198,6 +200,59 @@ def test_main_path_on_card_matches_host(card, tmp_path):
     counts1 = (fkernel.decode_stream.launches, mkernel.segminmax_refine.launches,
                mkernel.page_minmax.launches)
     assert all(c1 > c0 for c0, c1 in zip(counts0, counts1))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", [*CASES, "random_4m"])
+def test_stream_expand_kernel_matches_plain(card, case, dtype):
+    """The card's token descriptors equal the plain host expansion bit for
+    bit, padding tail included: the compact stream's cases (escapes none,
+    few and many; raw, single-value and empty pages; whole blocks; no
+    values) and 4 M values in pages of random sizes and escape densities."""
+    rng = np.random.default_rng(11)
+    pages = (random_pages(rng, dtype, 4_000_000) if case == "random_4m"
+             else stored_pages(rng, case, dtype))
+    s = tfd.build_page_stream(port_plans(pages, dtype))
+    launches = fkernel.expand_stream.launches
+    ds = tfd.stream_from_numpy(s, device=card)
+    assert fkernel.expand_stream.launches == launches + 1
+    assert "_expanded" not in vars(s) and "words32" not in vars(s)
+    assert torch.equal(ds.words32.cpu(), torch.from_numpy(s.words32))
+    want = fops.expand_stream_ref(s)
+    for name, got, w in zip(("tok_off", "nbits", "anchor"), (ds.tok_off, ds.nbits, ds.anchor),
+                            want):
+        assert got.dtype == torch.int32 and tuple(got.shape) == w.shape, name
+        assert torch.equal(got.cpu(), torch.from_numpy(w)), name
+
+
+def test_bbox_read_on_card_expands_descriptors_on_card(card, tmp_path):
+    """A traced bbox read on the card gives the CPU path's survivors and bits,
+    expands every stream on the card (``device.expand_launch``, beside
+    ``device.h2d``) and none on the host."""
+    cols = porto_taxi_like(n_traj=3000)
+    path = tmp_path / "pt.spqf"
+    write_file(path, columns=cols, sort="hilbert", page_values=4096, row_group_records=1000)
+    bbox = (-8.7, 41.1, -8.6, 41.2)
+    with SpatialParquetReader(path) as r:
+        want = r.read_columnar(bbox=bbox, refine=True, device="cpu")
+        tracer = obs.enable()
+        try:
+            got = r.read_columnar(bbox=bbox, refine=True, device="cuda")
+        finally:
+            obs.disable()
+    counters = obs.snapshot()["counters"]
+    assert counters.get("stream.expand.host_values", 0) == 0
+    assert counters["stream.expand.device_values"] > 0
+    spans = tracer.spans()
+    names = {s["args"]["span_id"]: s["name"] for s in spans}
+    expand = [s for s in spans if s["name"] == "device.expand_launch"]
+    assert expand and all(names.get(s["args"]["parent_id"]) == "rg.launch" for s in expand)
+    assert all("escapes" in s["args"] for s in spans if s["name"] == "stream.build")
+    assert got[2].records_returned == want[2].records_returned > 0
+    for f in ("types", "type_rep", "rep", "defn"):
+        assert np.array_equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert np.array_equal(got[0].x.view(np.int64), want[0].x.view(np.int64))
+    assert np.array_equal(got[0].y.view(np.int64), want[0].y.view(np.int64))
 
 
 def _anchor_free_plan(rng, dtype, n):

@@ -204,7 +204,10 @@ def test_kernel_wrapper_takes_only_cuda_tensors(rng):
     ds = tfd.stream_from_numpy(ts, ta, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.decode_stream(ds.words32, ds.tok_off, ds.nbits, ds.anchor, ds.width)
-    assert kernel.decode_stream.launches == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.expand_stream(torch.from_numpy(ts.page_table), torch.from_numpy(ts.escapes),
+                             ts.n_values, ts.width, ts.shape[0])
+    assert kernel.decode_stream.launches == 0 and kernel.expand_stream.launches == 0
 
 
 # ------------------------------------- the decode kernel's cross-tile algebra

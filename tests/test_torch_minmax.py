@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import fp_delta as jfd  # noqa: E402
 from repro.kernels import minmax as jmm  # noqa: E402
 from repro.core.fp_delta import fp_delta_encode, fp_delta_plan  # noqa: E402
+from repro_torch.core.fp_delta import fp_delta_plan as t_fp_delta_plan  # noqa: E402
 from repro_torch.kernels import fp_delta as tfd  # noqa: E402
 from repro_torch.kernels import minmax as tmm  # noqa: E402
 from repro_torch.kernels.minmax import ref as tref  # noqa: E402
@@ -138,7 +139,9 @@ def test_float_order_keys_match_jax(rng, width):
 
 def _stream(rng, dtype, n_rec=90, specials=True):
     """Record-aligned x/y pages through the reference's builders, with NaN,
-    ±inf, ±0 and denormal coordinates and empty records."""
+    ±inf, ±0 and denormal coordinates and empty records; then the port's
+    stream and aux, built by the port from its own plans of the same
+    payloads."""
     counts = rng.integers(0, 30, n_rec)
     counts[3] = 0
     total = int(counts.sum())
@@ -152,14 +155,18 @@ def _stream(rng, dtype, n_rec=90, specials=True):
         y[hit[::2]] = pool[rng.integers(0, len(pool), len(hit[::2]))]
     split = n_rec // 3
     vs = int(counts[:split].sum())
-    plans = []
+    plans, tplans = [], []
     for lo_, hi_ in ((0, vs), (vs, total)):
         for v in (x[lo_:hi_], y[lo_:hi_]):
             payload, _ = fp_delta_encode(v)
             plans.append(fp_delta_plan(payload, len(v), np.dtype(dtype)))
+            tplans.append(t_fp_delta_plan(payload, len(v), np.dtype(dtype)))
+    pairs = [(0, split), (split, n_rec)]
     stream = jfd.build_page_stream(plans)
-    aux = jfd.build_refine_aux(stream, [(0, split), (split, n_rec)], counts)
-    return stream, aux, x, y, counts
+    aux = jfd.build_refine_aux(stream, pairs, counts)
+    tstream = tfd.build_page_stream(tplans)
+    taux = tfd.build_refine_aux(tstream, pairs, counts)
+    return stream, aux, tstream, taux, x, y, counts
 
 
 def _jax_segment_ends(stream, aux, use_pallas):
@@ -185,11 +192,10 @@ def test_segminmax_refine_matches_segment_minmax(rng, dtype, use_pallas):
     """Per-record keys at every segment end equal the reference's segmented
     scan (Pallas interpret and jnp oracle); the survivor mask equals the
     reference's fused refine."""
-    stream, aux, *_ = _stream(rng, dtype)
+    stream, aux, tstream, taux, *_ = _stream(rng, dtype)
     want = _jax_segment_ends(stream, aux, use_pallas)
     bbox = (-3.0, -2.0, 4.0, 6.0)
-    ds = tfd.stream_from_numpy(tfd.PageStream(**vars(stream)),
-                               tfd.RefineAux(**vars(aux)), device="cpu")
+    ds = tfd.stream_from_numpy(tstream, taux, device="cpu")
     bits = tfd.decode_stream_bits(ds)
     q = tmm.keys64(tmm.bbox_query_keys(bbox, np.dtype(dtype)))
     keep, mm = tmm.segminmax_refine(bits, ds.x_start, ds.y_start, ds.counts,
