@@ -514,8 +514,10 @@ class SpatialParquetReader:
 
     def _decode_rg_levels(self, src, rg, stats: ReadStats) -> _RowGroupLevels:
         """Decode one row group's four level streams from memory slices."""
-        with obs.span("rg.levels", cat="decode"):
-            return self._decode_rg_levels_inner(src, rg, stats)
+        with obs.span("rg.levels", cat="decode") as sp:
+            lv = self._decode_rg_levels_inner(src, rg, stats)
+            sp.add(slots=len(lv.rep))
+            return lv
 
     def _decode_rg_levels_inner(self, src, rg, stats: ReadStats) -> _RowGroupLevels:
         types = rle_decode(

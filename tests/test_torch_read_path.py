@@ -133,6 +133,29 @@ def test_files_byte_identical_encodings(tmp_path, rng, enc, codec, dtype):
     assert jp.read_bytes() == tp.read_bytes()
 
 
+@pytest.mark.parametrize("kind,n", [("roads_like", 1800), ("buildings_like", 3000)])
+def test_multipart_files_byte_identical(tmp_path, kind, n):
+    """MultiLineString roads and Polygon buildings, whose repetition streams
+    are bit-packed: both packages' generators draw the same columns, and
+    both writers write the same bytes (several row groups and pages). Their
+    reads are held to the reference in ``tests/test_torch_multipart_read.py``."""
+    from repro.data import synthetic as jsyn
+    from repro_torch.data import synthetic as tsyn
+
+    jc, tc = getattr(jsyn, kind)(n, seed=5), getattr(tsyn, kind)(n, seed=5)
+    for f in ("types", "type_rep", "rep", "defn"):
+        assert np.array_equal(getattr(jc, f), getattr(tc, f)), f
+    kw = dict(page_values=2048, row_group_records=700, sort="hilbert", checksums=True)
+    jp, tp = tmp_path / "ref.spqf", tmp_path / "port.spqf"
+    j_write(jp, columns=jc, **kw)
+    t_write(tp, columns=tc, device="cpu", **kw)
+    assert jp.read_bytes() == tp.read_bytes()
+    with TReader(tp) as r:
+        rgs = r.footer["row_groups"]
+    assert len(rgs) >= 3
+    assert all(jp.read_bytes()[rg["rep"]["offset"]] == 1 for rg in rgs)   # packed
+
+
 @pytest.fixture
 def pt_files(tmp_path, rng):
     arrays, dt = _trajectories(rng, n_rec=300)
