@@ -20,9 +20,11 @@ Phases, each fatal on failure (nothing is caught):
    a numpy oracle computed from the generated columns, independent of both
    packages' readers. Every kernel must have launched at least once;
 3. each kernel against its plain PyTorch version on the same CUDA tensors,
-   the page stream's descriptor expansion (``csrc/stream_expand.cu``)
-   against the plain host expansion of every stream below, and the decode's
-   plain version fed that host expansion, never the card's,
+   the page stream's escape resolution and descriptor expansion
+   (``csrc/stream_expand.cu``) against the plain host resolution and
+   expansion of every stream below (the resolution also on pages of token
+   widths 1, W - 1 and 8 over wild bits, see :func:`escape_cases`), and the
+   decode's plain version fed that host expansion, never the card's,
    at the main path's shapes and on adversarial inputs (W = 32 and 64,
    escapes, raw pages, NaN, ±inf, ±0, denormals, NaN and all-NaN pages;
    for the decode also a 4.2 M value page with one anchor, all-anchor
@@ -254,7 +256,7 @@ TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak (data sh
 KERNEL_LIBS = ("stream_expand", "fp_delta_decode", "segminmax_refine", "page_minmax",
                "flash_attention", "flash_attention_sm90", "miniblock")
 FILE_KERNELS = ("fp_delta.decode_stream", "minmax.segminmax_refine", "minmax.page_minmax",
-                "fp_delta.expand_stream")
+                "fp_delta.expand_stream", "fp_delta.escape_resolve")
 CODEC_KERNELS = ("fp_delta.encode_blocks", "fp_delta.decode_blocks")
 LM_KERNELS = ("flash_attention.flash_attention_sm90",)
 F32_FLASH = "flash_attention.flash_attention_f32"   # the float32 route: its own forward
@@ -736,6 +738,26 @@ def decode_cases(rng):
     return out
 
 
+def escape_cases(rng):
+    """Streams for the escape resolution beyond the main and mixed-page
+    ones, as (name, page stream): per width, pages at token width 1 (the
+    marker a single one), W - 1, and 8 over wild bits (nearly every delta
+    escapes; runs of 8 ones far outnumber the tokens)."""
+    from repro_torch.core.fp_delta import fp_delta_encode, fp_delta_plan
+    from repro_torch.kernels.fp_delta import build_page_stream
+
+    out = []
+    for dt in (np.float32, np.float64):
+        w = np.dtype(dt).itemsize * 8
+        uint = np.uint32 if w == 32 else np.uint64
+        smooth = (np.cumsum(rng.normal(0, 1e-4, 40_000)) + 40.7).astype(dt)
+        wild = rng.integers(0, np.iinfo(uint).max, 40_000, dtype=uint, endpoint=True).view(dt)
+        pages = [(np.repeat(smooth[::5], 5), 1), (wild, w - 1), (wild, 8)]
+        plans = [fp_delta_plan(fp_delta_encode(x, n)[0], len(x), np.dtype(dt)) for x, n in pages]
+        out.append((f"token_widths_w{w}", build_page_stream(plans)))
+    return out
+
+
 def mismatches(a, b) -> tuple[int, float]:
     """Positions whose bit patterns differ, and the largest |difference| of
     the patterns read as integers (0 when they agree)."""
@@ -802,6 +824,8 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+    resolve_row = check_escape_resolve(stream, put, np.random.default_rng(23))
 
     # ---- the expansion: each stream's token descriptors written on the card
     ds = stream_from_numpy(stream, aux, device=DEVICE)
@@ -998,7 +1022,57 @@ def check_kernels(path: Path, main: dict) -> list[dict]:
                       bound_by="bytes", library_ms=l_ms,
                       shape={"values": len(dur), "pages": n_pages}))
     table.append(expand_row)
+    table.append(resolve_row)
     return table
+
+
+def check_escape_resolve(stream, put, rng) -> dict:
+    """The escape resolution on the card against the plain host resolution:
+    row group 0's first chunk, the adversarial and decode streams and
+    :func:`escape_cases`, each on a fresh upload; then its times at the
+    chunk's shape (the plain version re-resolves every page's escapes, as
+    the host did before the kernel)."""
+    import torch
+
+    from repro_torch.core.fp_delta import resolve_escapes
+    from repro_torch.kernels.fp_delta import kernel as fk, stream_from_numpy
+
+    streams = [("main", stream)]
+    streams += [(f"adversarial_w{np.dtype(dt).itemsize * 8}", adversarial_stream(rng, dt)[0])
+                for dt in (np.float32, np.float64)]
+    streams += [(name, s) for name, s, nb in decode_cases(np.random.default_rng(17)) if nb is None]
+    streams += escape_cases(np.random.default_rng(19))
+    bad = 0
+    for name, s in streams:
+        d = stream_from_numpy(s, device=DEVICE)
+        esc, nbad = fk.escape_resolve(d.words32, put(s.page_table), s.n_escapes, s.width)
+        torch.cuda.synchronize()
+        m, _ = mismatches(esc, put(s.escapes)) if s.n_escapes else (0, 0.0)
+        m += int(nbad.item()) + int(d.bad.item())
+        emit({"check": "fp_delta.escape_resolve", "case": name,
+              "pages": int(s.page_table.shape[1]), "escapes": s.n_escapes,
+              "n_star": sorted({p.n for p in s.plans}), "width": s.width, "mismatches": m})
+        bad += m
+    words = stream_from_numpy(stream, device=DEVICE).words32
+    n_used = sum(len(w) for w in stream.word_parts)
+    table_t = put(stream.page_table)
+
+    def resolve():
+        return fk.escape_resolve(words, table_t, stream.n_escapes, stream.width)
+
+    k_ms = cuda_ms(resolve)
+    k_dev = device_ms(resolve)
+    p_ms = cuda_ms(lambda: [resolve_escapes(p) for p in stream.plans], iters=3, warmup=1)
+    bytes_moved = 8 * n_used + stream.page_table.nbytes + 4 * stream.n_escapes
+    return dict(name="fp_delta.escape_resolve", route="cuda",
+                source="src/repro_torch/csrc/stream_expand.cu",
+                replaces="none: src/repro/core/fp_delta.py::fp_delta_plan resolves on the host",
+                mismatches=bad, max_abs_err=0.0, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                bytes=bytes_moved, bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None,
+                shape={"values": stream.n_values, "pages": int(stream.page_table.shape[1]),
+                       "escapes": stream.n_escapes, "n_star": sorted({p.n for p in stream.plans}),
+                       "word_bytes": 8 * n_used, "width": stream.width})
 
 
 # ---------------------------------------------------------------- dataset path
@@ -2853,7 +2927,8 @@ def train_child(argv) -> int:
     train.main(argv)
     emit({"train_child": {"launches": {FILE_KERNELS[0]: fk.decode_stream.launches,
                                        FILE_KERNELS[1]: mk.segminmax_refine.launches,
-                                       FILE_KERNELS[3]: fk.expand_stream.launches}}})
+                                       FILE_KERNELS[3]: fk.expand_stream.launches,
+                                       FILE_KERNELS[4]: fk.escape_resolve.launches}}})
     return 0
 
 
@@ -3236,6 +3311,7 @@ def main() -> int:
         if ptxas:
             emit({f"ptxas_{lib}": ptxas})
     counters = [fk.decode_stream, mk.segminmax_refine, mk.page_minmax, fk.expand_stream,
+                fk.escape_resolve,
                 fk.encode_blocks, fk.decode_blocks, ak.flash_attention_sm90,
                 ak.flash_attention_f32]
     names = list(FILE_KERNELS + CODEC_KERNELS + LM_KERNELS) + [F32_FLASH]

@@ -47,23 +47,28 @@ read path, so every stage is one numpy pass):
 * ``out=`` lets callers (the coalesced reader) decode straight into a slice
   of a preallocated coordinate array, eliminating list-append +
   ``np.concatenate`` from the read path.
-* **Decode is split into plan + execute.** :func:`fp_delta_plan` performs
-  the only inherently sequential part of Algorithm 2 — header parsing and
+* **Decode is split into plan + execute.** :func:`fp_delta_plan` parses
+  the header (``n*``, the first value, the exact escape count) and keeps
+  the packed words; the only inherently sequential part of Algorithm 2 —
   escape resolution, i.e. locating every token once reset markers shift
-  later offsets — and returns an :class:`FPDeltaPlan` holding the packed
-  words plus the resolved ``(offsets, flags)``. :func:`fp_delta_execute`
+  later offsets — runs on the host only when a plan's ``(offsets, flags)``
+  are first read (:func:`resolve_escapes`). :func:`fp_delta_execute`
   finishes on the host (gather, un-zigzag, segmented cumsum);
   ``repro_torch.kernels.fp_delta`` consumes the very same plans to run that
-  second half on the accelerator (Pallas page-stream decode), so the two
-  back ends can never disagree about the format. :func:`fp_delta_decode`
-  is plan + host execute and stays the oracle.
+  second half on the accelerator, where a CUDA kernel finds the reset
+  markers in the words on the card and the host resolves nothing, so the
+  two back ends can never disagree about the format.
+  :func:`fp_delta_decode` is plan + host execute and stays the oracle.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
+
+from repro_torch import obs
 
 from .bitstream import (
     bytes_to_words,
@@ -358,15 +363,18 @@ def _resolve_escapes_scan(
 
 @dataclass(frozen=True)
 class FPDeltaPlan:
-    """Host-resolved decode plan for one page (the device-decode contract).
+    """Parsed decode plan for one page (the device-decode contract).
 
-    The only inherently sequential part of Algorithm 2 — locating every token
-    once reset markers shift later offsets — is resolved here on the host.
-    What remains (fixed-width gather, escape injection, segmented cumsum,
-    un-zigzag, float bitcast) is embarrassingly parallel; it is executed
-    either by :func:`fp_delta_execute` (host numpy) or by the Pallas
-    page-stream kernel in :mod:`repro_torch.kernels.fp_delta`, which batches many
-    plans into one launch.
+    The plan holds what the page's header and length give: the token width,
+    the first value, the packed words and the exact escape count. The only
+    inherently sequential part of Algorithm 2 — locating every token once
+    reset markers shift later offsets — is left to whoever executes the
+    plan: :func:`fp_delta_execute` (host numpy) reads ``offsets``/``flags``,
+    which resolve on the host at first access (:func:`resolve_escapes`,
+    counted in ``page.resolve.host_pages``); the CUDA page stream in
+    :mod:`repro_torch.kernels.fp_delta` finds the markers on the card and
+    never reads them. What remains (fixed-width gather, escape injection,
+    segmented cumsum, un-zigzag, float bitcast) is embarrassingly parallel.
 
     ``offsets[j]``/``flags[j]`` describe delta token ``j`` (``n_values - 1``
     entries): its absolute bit offset in ``words`` and whether it is the
@@ -381,9 +389,21 @@ class FPDeltaPlan:
     n_values: int
     first: int            # raw W-bit pattern of value 0 (0 when empty/raw)
     words: np.ndarray     # uint64 packed stream incl. trailing spill word
-    offsets: np.ndarray   # (n_deltas,) int64 token bit offsets
-    flags: np.ndarray     # (n_deltas,) bool: True where token is a marker
     n_escapes: int        # escape count recovered from the payload length
+
+    @cached_property
+    def _resolved(self) -> tuple[np.ndarray, np.ndarray]:
+        return resolve_escapes(self)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        """(n_deltas,) int64 token bit offsets (host resolution)."""
+        return self._resolved[0]
+
+    @property
+    def flags(self) -> np.ndarray:
+        """(n_deltas,) bool: True where the token is a marker (host resolution)."""
+        return self._resolved[1]
 
 
 def _check_out(out: np.ndarray | None, n_values: int, dtype: np.dtype) -> None:
@@ -400,51 +420,54 @@ _EMPTY_FLAGS = np.zeros(0, dtype=bool)
 
 
 def fp_delta_plan(payload, n_values: int, dtype) -> FPDeltaPlan:
-    """Parse a payload's header and resolve every escape (Algorithm 2 front
-    half). ``payload`` may be any bytes-like buffer (``bytes``,
-    ``memoryview``)."""
+    """Parse a payload's header (Algorithm 2 front half, escapes left
+    unresolved: see :class:`FPDeltaPlan`). ``payload`` may be any
+    bytes-like buffer (``bytes``, ``memoryview``)."""
     dtype = np.dtype(dtype)
     width = dtype.itemsize * 8
     if width not in (32, 64):
         raise TypeError(f"unsupported dtype {dtype}")
     if n_values == 0:
-        return FPDeltaPlan(dtype, width, 0, 0, 0, np.zeros(1, np.uint64),
-                           _EMPTY_OFFS, _EMPTY_FLAGS, 0)
+        return FPDeltaPlan(dtype, width, 0, 0, 0, np.zeros(1, np.uint64), 0)
 
     words = bytes_to_words(payload)
     n = read_one(words, 0, HEADER_BITS)
     cursor = HEADER_BITS
     if n == 0:  # raw mode: every value raw at W bits, no delta tokens
-        return FPDeltaPlan(dtype, width, 0, n_values, 0, words,
-                           _EMPTY_OFFS, _EMPTY_FLAGS, 0)
+        return FPDeltaPlan(dtype, width, 0, n_values, 0, words, 0)
 
     first = read_one(words, cursor, width)
     cursor += width
     n_deltas = n_values - 1
-    if n_deltas == 0:
-        return FPDeltaPlan(dtype, width, n, n_values, first, words,
-                           _EMPTY_OFFS, _EMPTY_FLAGS, 0)
-
     # Exact escape count from the payload length: total bits are
     # HEADER + W + n*D + W*E plus < 8 bits of byte padding, and W >= 32 > 7,
     # so the integer division is exact for well-formed payloads.
     n_escapes = (len(payload) * 8 - cursor - n * n_deltas) // width
     n_escapes = max(0, min(int(n_escapes), n_deltas))
+    return FPDeltaPlan(dtype, width, n, n_values, first, words, n_escapes)
 
-    if n_escapes == 0:
+
+def resolve_escapes(plan: FPDeltaPlan) -> tuple[np.ndarray, np.ndarray]:
+    """Resolve a plan's escapes on the host: ``(offsets, flags)`` of its
+    delta tokens (empty for raw, empty and single-value pages). Sparse
+    streams take the fixpoint, denser ones the candidate scan. Counted in
+    ``page.resolve.host_pages``."""
+    n, n_deltas = plan.n, plan.n_values - 1
+    if n == 0 or n_deltas <= 0:
+        return _EMPTY_OFFS, _EMPTY_FLAGS
+    obs.count("page.resolve.host_pages")
+    cursor = HEADER_BITS + plan.width
+    if plan.n_escapes == 0:
         offs = cursor + np.int64(n) * np.arange(n_deltas, dtype=np.int64)
-        flags = np.zeros(n_deltas, dtype=bool)
-    else:
-        resolved = None
-        if n_escapes <= _FIXPOINT_MAX_ESCAPES:
-            resolved = _resolve_escapes_fixpoint(
-                words, cursor, n_deltas, n, width, n_escapes)
-        if resolved is None:
-            resolved = _resolve_escapes_scan(
-                words, cursor, n_deltas, n, width, n_escapes)
-        offs, flags = resolved
-    return FPDeltaPlan(dtype, width, n, n_values, first, words,
-                       offs, flags, n_escapes)
+        return offs, np.zeros(n_deltas, dtype=bool)
+    resolved = None
+    if plan.n_escapes <= _FIXPOINT_MAX_ESCAPES:
+        resolved = _resolve_escapes_fixpoint(
+            plan.words, cursor, n_deltas, n, plan.width, plan.n_escapes)
+    if resolved is None:
+        resolved = _resolve_escapes_scan(
+            plan.words, cursor, n_deltas, n, plan.width, plan.n_escapes)
+    return resolved
 
 
 def fp_delta_execute(plan: FPDeltaPlan, out: np.ndarray | None = None) -> np.ndarray:

@@ -23,8 +23,6 @@ except ImportError:  # pragma: no cover - zstd optional
 
 from .bitstream import bytes_to_words
 from .fp_delta import (
-    _EMPTY_FLAGS,
-    _EMPTY_OFFS,
     HEADER_BITS,
     FPDeltaPlan,
     _check_out,
@@ -176,11 +174,12 @@ def decode_page(
 
 
 def page_plan(buf, meta: PageMeta, dtype, codec: str) -> FPDeltaPlan:
-    """Host-resolve one stored page into an :class:`FPDeltaPlan`.
+    """Parse one stored page into an :class:`FPDeltaPlan`.
 
-    The front half of the device read path: decompress + header parse +
-    escape resolution on the host; the returned plan is what
-    ``repro_torch.kernels.fp_delta.decode_pages`` batches onto the accelerator.
+    The front half of the device read path: decompress + header parse on
+    the host (escapes resolve where the plan is executed); the returned
+    plan is what ``repro_torch.kernels.fp_delta.decode_pages`` batches onto
+    the accelerator.
     Only FP-delta pages have plans (raw pages are a plain ``frombuffer``).
     """
     if meta.encoding != ENC_FP_DELTA:
@@ -213,13 +212,11 @@ def page_stream_plan(buf, meta: PageMeta, dtype, codec: str) -> FPDeltaPlan:
             raise TypeError(f"unsupported dtype {dtype}")
         payload = decompress(buf, codec)
         if meta.count == 0:
-            return FPDeltaPlan(dtype, width, 0, 0, 0, np.zeros(1, np.uint64),
-                               _EMPTY_OFFS, _EMPTY_FLAGS, 0)
+            return FPDeltaPlan(dtype, width, 0, 0, 0, np.zeros(1, np.uint64), 0)
         shifted = bytearray(1 + len(payload))
         shifted[1:] = payload
         assert HEADER_BITS == 8, "synthetic raw plan assumes a one-byte header"
-        return FPDeltaPlan(dtype, width, 0, meta.count, 0, bytes_to_words(shifted),
-                           _EMPTY_OFFS, _EMPTY_FLAGS, 0)
+        return FPDeltaPlan(dtype, width, 0, meta.count, 0, bytes_to_words(shifted), 0)
 
 
 def encode_pages(

@@ -41,13 +41,13 @@ equivalence tests).
 Devices (``device="cuda"``, ``"cpu"``, ``"host"``)
 ---------------------------------------------------
 
-``read_columnar(device="cuda")`` (the default) moves the FP-delta back half
-— fixed-width gather, escape injection, segmented cumsum, un-zigzag — onto
-the card: the host still parses headers and resolves escapes
-(``fp_delta_plan``), then the surviving coordinate pages of a row group are
-concatenated into page-stream launches of the hand-written CUDA decode
-kernel (``repro_torch.kernels.fp_delta``). ``device="cpu"`` runs the same
-torch chain with each kernel's plain version on CPU tensors;
+``read_columnar(device="cuda")`` (the default) moves FP-delta decoding onto
+the card: the host parses page headers (``fp_delta_plan``), then the
+surviving coordinate pages of a row group are concatenated into page-stream
+launches of hand-written CUDA kernels (``repro_torch.kernels.fp_delta``)
+that resolve the escapes, gather the fixed-width tokens, inject the
+escaped values and run the segmented cumsum and un-zigzag. ``device="cpu"``
+runs the same torch chain with each kernel's plain version on CPU tensors;
 ``device="host"`` is the numpy path. Results are **bit-identical** across
 the three; raw-encoded pages, level streams, and extra columns stay on the
 host.
@@ -896,11 +896,13 @@ class SpatialParquetReader:
         from repro_torch.kernels.fp_delta import (
             build_page_stream,
             build_refine_aux,
+            check_escapes,
             chunk_plan_pairs,
             decode_refine_stream,
-            decode_stream_device,
+            decode_stream_bits,
             gather_stream_values,
             ragged_ranges,
+            stream_from_numpy,
         )
 
         idx = self.index
@@ -924,6 +926,7 @@ class SpatialParquetReader:
 
         level_parts = (types_parts, type_rep_parts, rep_parts, defn_parts)
         vals_pruned = 0  # refine-dropped values (record-level byte pruning)
+        unchecked: list = []  # decoded streams whose escape check is pending
         src_iter = self._iter_sources(items, coalesce)
         try:
             for (rg_i, rg, runs, base, extra_pages, _ranges), src in src_iter:
@@ -1028,7 +1031,9 @@ class SpatialParquetReader:
                                                        device=device)
                             keep_c, bits_d = res.keep, res.bits
                         else:
-                            bits_d = decode_stream_device(stream, device=device)
+                            ds = stream_from_numpy(stream, device=device)
+                            bits_d = decode_stream_bits(ds)
+                            unchecked.append(ds)
                             keep_c = (attr_c.copy() if attr_c is not None
                                       else np.ones(len(vc), bool))
                     if do_compact and obs.enabled():
@@ -1043,6 +1048,9 @@ class SpatialParquetReader:
                             bits_d, iy, dtype, keep_on_device=keep_on_device))
         finally:
             src_iter.close()
+        # streams decoded without a refine are checked once, here (after the
+        # gathers' transfers, or, kept on the device, the read's one wait)
+        check_escapes(unchecked)
         obs.count("pruned.record_bytes", vals_pruned * 2 * dtype.itemsize)
 
         with obs.span("scan.assemble", cat="decode") if obs.enabled() else obs.NULL_SPAN:

@@ -1,5 +1,6 @@
-"""Wrappers of the FP-delta CUDA kernels: the page stream's descriptor
-expansion (``csrc/stream_expand.cu``), the page-stream decode
+"""Wrappers of the FP-delta CUDA kernels: the page stream's escape
+resolution and descriptor expansion (``csrc/stream_expand.cu``), the
+page-stream decode
 (``csrc/fp_delta_decode.cu``) and the miniblock codec (``csrc/miniblock.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
@@ -33,6 +34,52 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev: torch.device, sh
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def escape_resolve(words32, page_table, n_escapes: int, width: int):
+    """Find every page's reset markers in a page stream's words on the card.
+
+    ``words32``: (n_words,) int32, the stream's packed words (each page from
+    its base bit, zeros after the last page), n_words even and the buffer
+    8-byte aligned; ``page_table``: (5, n_pages) int32 as for
+    :func:`expand_stream`, its fifth row the running sum of the pages' escape
+    counts (their payload lengths'); ``n_escapes``: the total. Returns
+    ``(escapes, bad)``: (n_escapes,) int32 ascending stream positions of the
+    escaped values, equal to :func:`.ops.escape_resolve_ref`, and a (1,)
+    int32 count of pages whose tokens do not mark exactly the escapes the
+    table gives them. Such a page's slots hold its first positions instead,
+    so that the expansion and the decode stay inside the buffer; the caller
+    reads ``bad`` after a transfer it waits for anyway.
+    """
+    dev = words32.device
+    if dev.type != "cuda":
+        raise ValueError("escape_resolve kernel needs CUDA tensors")
+    if width not in (32, 64):
+        raise ValueError(f"width must be 32 or 64, got {width}")
+    if words32.dim() != 1 or words32.numel() % 2 or words32.numel() < 2:
+        raise ValueError("words32 must be 1-D with an even number (>= 2) of words")
+    if page_table.dim() != 2 or page_table.shape[0] != 5:
+        raise ValueError(f"page_table must be (5, n_pages), got {tuple(page_table.shape)}")
+    n_pages = page_table.shape[1]
+    _check(words32, "words32", torch.int32, dev, words32.shape)
+    _check(page_table, "page_table", torch.int32, dev, (5, n_pages))
+    if words32.data_ptr() % 8:
+        raise ValueError("words32 must be 8-byte aligned")
+    if not 0 <= n_escapes < 2 ** 31:
+        raise ValueError(f"{n_escapes} escapes exceed int32 positions")
+    escapes = torch.empty(n_escapes, dtype=torch.int32, device=dev)
+    bad = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = _build.entry("stream_expand", "sx_resolve_escapes",
+                      [_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       _P, _P, _P])
+    err = fn(words32.data_ptr(), words32.numel() // 2, page_table.data_ptr(), n_pages,
+             n_escapes, width, escapes.data_ptr(), bad.data_ptr(), _stream(dev))
+    _build.check(_build.load("stream_expand"), "sx", err, "escape_resolve launch")
+    _build.bump(escape_resolve)
+    return escapes, bad
+
+
+escape_resolve.launches = 0
 
 
 def expand_stream(page_table, escapes, n_values: int, width: int, n_blocks: int):

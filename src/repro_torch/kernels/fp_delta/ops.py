@@ -8,19 +8,20 @@ self-contained blocks of ``MINIBLOCK`` values (format in :mod:`.ref`). The
 input is padded with its last element (zero deltas cost nothing); the dense
 device stream compacts on the host into the ``FPD2`` byte format.
 
-Page stream: batched device execution of host-resolved ``FPDeltaPlan``s (the
+Page stream: batched device execution of ``FPDeltaPlan``s (the
 paper-exact page format of :mod:`repro_torch.core.fp_delta`), consumed by
-``SpatialParquetReader.read_columnar``. The host has done the sequential
-part — escape resolution — so many pages concatenate into one flat value
-stream (:func:`build_page_stream`), kept compact: the packed words, a table
-of a few numbers a page, and the positions of the escaped values. Every
-value's token bit offset, token width and anchor flag is a closed form of
-these; on CUDA a kernel of its own writes them on the card
-(``csrc/stream_expand.cu``), and the plain host expansion
-(:func:`expand_stream_ref`) serves the CPU path and the tests. One decode
-launch covers a whole chunk of a row group. :func:`decode_refine_stream`
-chains the decode with the per-record order-key min/max and the bbox
-survivor test of
+``SpatialParquetReader.read_columnar``. Many pages concatenate into one flat
+value stream (:func:`build_page_stream`), kept compact: the packed words and
+a table of a few numbers a page, the header's escape counts among them.
+Every value's token bit offset, token width and anchor flag is a closed form
+of these and the positions of the escaped values. On CUDA two kernels of
+their own write them on the card (``csrc/stream_expand.cu``): one finds the
+reset markers in the words (the sequential part of the decode, one warp step
+an escape), one expands the descriptors; the host resolves nothing. The
+plain host versions (:func:`escape_resolve_ref`, :func:`expand_stream_ref`)
+serve the CPU path and the tests. One decode launch covers a whole chunk of
+a row group. :func:`decode_refine_stream` chains the decode with the
+per-record order-key min/max and the bbox survivor test of
 :mod:`repro_torch.kernels.minmax`, so only the record mask and then the
 surviving values (:func:`gather_stream_values`) leave the device.
 
@@ -42,6 +43,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import torch_device
+from repro_torch.core.bitstream import unpack_at
 from repro_torch.core.columnar import TorchCoords
 from repro_torch.core.fp_delta import HEADER_BITS, FPDeltaPlan, fp_delta_execute
 from repro_torch.kernels.minmax import (
@@ -213,8 +215,7 @@ def _pow2_bucket(x: int, floor: int) -> int:
 @dataclass
 class PageStream:
     """Many pages concatenated into one device-decodable value stream, in
-    compact form: each page's packed words, a table of the pages and the
-    positions of the escaped values.
+    compact form: each page's packed words and a table of the pages.
 
     Every token descriptor the decode needs is a closed form of these. For
     a page at stream position ``S`` with base bit ``B`` (its first word's
@@ -224,9 +225,11 @@ class PageStream:
     token ``j``, ``E_j`` escapes before it) is an n-bit delta at ``B + 8 + W
     + n*j + W*E_j``, or, when escaped, a W-bit anchor ``n`` bits further on
     (the raw value after the marker). The padding tail is W-bit anchors at
-    bit 0. The CUDA path expands them on the card (``csrc/stream_expand.cu``,
-    in :func:`stream_from_numpy`); :func:`expand_stream_ref` is the plain
-    host expansion, behind the ``tok_off``/``nbits``/``anchor`` properties.
+    bit 0. The CUDA path finds the escapes and expands the descriptors on
+    the card (``csrc/stream_expand.cu``, in :func:`stream_from_numpy`);
+    :func:`escape_resolve_ref` and :func:`expand_stream_ref` are the plain
+    host versions, behind the ``escapes`` and ``tok_off``/``nbits``/``anchor``
+    properties.
     """
 
     word_parts: tuple[np.ndarray, ...]  # each page's packed uint64 words, spill
@@ -236,8 +239,8 @@ class PageStream:
     page_table: np.ndarray  # (5, n_pages) int32, rows: value start, value
                             # count, base bit, n (0: raw), first escape index;
                             # pages with no values have no column
-    escapes: np.ndarray     # (n_escapes,) int32 ascending stream positions of
-                            # escaped values
+    plans: tuple[FPDeltaPlan, ...]  # the table's pages (host resolution only)
+    n_escapes: int          # escaped values of all pages (their headers' counts)
     width: int              # 32 or 64 (uniform across the stream)
     counts: tuple[int, ...]  # per-page value counts (output split points)
     shape: tuple[int, int]  # (n_blocks, STREAM_BLOCK) of the padded stream
@@ -259,6 +262,12 @@ class PageStream:
         return wbuf.view(np.int32)
 
     @cached_property
+    def escapes(self) -> np.ndarray:
+        """(n_escapes,) int32 ascending stream positions of the escaped
+        values (host resolution)."""
+        return escape_resolve_ref(self)
+
+    @cached_property
     def _expanded(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         return expand_stream_ref(self)
 
@@ -278,16 +287,24 @@ class PageStream:
         return self._expanded[2]
 
 
+def _token_bits(p: FPDeltaPlan) -> int:
+    """Bits a plan's header, values and tokens take: what its escape count
+    and value count say its payload holds, byte padding left out."""
+    if p.n == 0:
+        return HEADER_BITS + p.width * p.n_values
+    return HEADER_BITS + p.width + p.n * (p.n_values - 1) + p.width * p.n_escapes
+
+
 def build_page_stream(plans) -> PageStream:
-    """Concatenate resolved plans into one compact :class:`PageStream`.
+    """Concatenate plans into one compact :class:`PageStream`.
 
     Each page keeps its packed words (placed word-aligned, one page after
-    another, where the stream is copied), adds a column to the page table
-    and its escaped values' positions to the escape array: the host work is
-    a few numbers a page and one pass over its escape flags, never an array
-    of one entry a value, and no copy of the payload. Total payload must
-    stay under ``_MAX_LAUNCH_BITS`` (use :func:`decode_pages`, which chunks
-    automatically). Traced as the ``stream.build`` span.
+    another, where the stream is copied) and adds a column to the page
+    table, its first escape index the running sum of the headers' escape
+    counts: the host work is a few numbers a page, never an array of one
+    entry a value, no escape resolution and no copy of the payload. Total
+    payload must stay under ``_MAX_LAUNCH_BITS`` (use :func:`decode_pages`,
+    which chunks automatically). Traced as the ``stream.build`` span.
     """
     plans = list(plans)
     with (obs.span("stream.build", cat="plan", pages=len(plans),
@@ -303,26 +320,20 @@ def build_page_stream(plans) -> PageStream:
         n_esc = 0
         wparts: list[np.ndarray] = []
         cols: list[tuple[int, int, int, int, int]] = []
-        escp: list[np.ndarray] = []
+        kept: list[FPDeltaPlan] = []
         counts: list[int] = []
         for p in plans:
             counts.append(p.n_values)
             if p.n_values == 0:
                 continue
             w = p.words[:-1]  # drop the all-zero spill word; re-guarded globally
-            cnt, W = p.n_values, p.width
-            cols.append((v_start, cnt, word_base * 64, p.n, n_esc))
-            if p.n and cnt > 1:
-                esc = np.flatnonzero(p.flags)
-                # the closed form holds for every plan the resolvers return
-                # from a well-formed payload; check it at the last token
-                last = HEADER_BITS + W + p.n * (cnt - 2) + W * (len(esc) - bool(p.flags[-1]))
-                if int(p.offsets[-1]) != last:
-                    raise ValueError("page's token offsets do not follow its escapes")
-                if len(esc):
-                    escp.append(esc + (v_start + 1))  # token j is value j + 1
-                    n_esc += len(esc)
-            v_start += cnt
+            if _token_bits(p) > 64 * len(w):
+                raise ValueError("a page's tokens do not follow its escapes: its payload "
+                                 "is shorter than its header's tokens")
+            cols.append((v_start, p.n_values, word_base * 64, p.n, n_esc))
+            n_esc += p.n_escapes  # 0 for raw and single-value pages
+            kept.append(p)
+            v_start += p.n_values
             word_base += len(w)
             wparts.append(w)
 
@@ -336,12 +347,34 @@ def build_page_stream(plans) -> PageStream:
         nw = _pow2_bucket(_round_up(2 * word_base + 2, 128), 128)
 
         table = np.array(cols, np.int32).reshape(-1, 5).T.copy()
-        escapes = (np.concatenate(escp).astype(np.int32) if escp
-                   else np.zeros(0, np.int32))
         n_blocks = _pow2_bucket(-(-max(v_start, 1) // STREAM_BLOCK), 1)
         sp.add(escapes=n_esc)
-        return PageStream(tuple(wparts), nw, table, escapes, width, tuple(counts),
-                          (n_blocks, STREAM_BLOCK))
+        return PageStream(tuple(wparts), nw, table, tuple(kept), n_esc, width,
+                          tuple(counts), (n_blocks, STREAM_BLOCK))
+
+
+def escape_resolve_ref(stream: PageStream) -> np.ndarray:
+    """The plain host version of ``kernel.escape_resolve``: the stream
+    positions of every escaped value, ascending, from each page's host
+    resolution (``FPDeltaPlan.flags``). A page whose tokens do not hold
+    exactly the escapes its payload length claims (fewer markers, or a
+    marker after the last of them) is refused with ``ValueError``, as the
+    card refuses it, rather than expanded into wrong descriptors."""
+    parts = []
+    for p, v0 in zip(stream.plans, stream.page_table[0].tolist()):
+        if p.n == 0 or p.n_values < 2:
+            continue
+        esc = np.flatnonzero(p.flags)
+        after = p.offsets[esc[-1] + 1:] if len(esc) else p.offsets
+        more = (len(esc) == p.n_escapes
+                and bool((unpack_at(p.words, after, p.n) == np.uint64((1 << p.n) - 1)).any()))
+        if len(esc) != p.n_escapes or more:
+            raise ValueError(
+                f"a page's tokens do not follow its escapes: its payload length claims "
+                f"{p.n_escapes} escaped values, its tokens mark {len(esc)}"
+                f"{' and more' if more else ''}")
+        parts.append(esc + (v0 + 1))  # token j is value j + 1
+    return np.concatenate(parts).astype(np.int32) if parts else np.zeros(0, np.int32)
 
 
 def expand_stream_ref(stream: PageStream) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -457,6 +490,22 @@ class DeviceStream:
     y_start: torch.Tensor | None = None   # (n_records,) int64
     counts: torch.Tensor | None = None    # (n_records,) int64
     valid: torch.Tensor | None = None     # (n_records,) bool
+    bad: torch.Tensor | None = None       # (1,) int32 on the card: pages whose
+                                          # tokens do not follow their escapes
+                                          # (None on the CPU, which raised)
+
+
+def check_escapes(streams) -> None:
+    """Raise ``ValueError`` if the card found a page of any of ``streams``
+    whose tokens do not follow its escapes. Read after a transfer that
+    already waited for the streams' kernels, it waits for nothing more."""
+    bad = [ds.bad for ds in streams if ds.bad is not None]
+    if not bad:
+        return
+    n = int((bad[0] if len(bad) == 1 else torch.stack(bad).sum()).item())
+    if n:
+        raise ValueError(f"{n} page(s) of the stream do not follow their escapes: "
+                         "the payload lengths claim other escapes than the tokens mark")
 
 
 def stream_from_numpy(stream: PageStream, aux: RefineAux | None = None, *,
@@ -464,10 +513,13 @@ def stream_from_numpy(stream: PageStream, aux: RefineAux | None = None, *,
     """Move a host-built stream (and refine aux) to ``device`` as tensors.
 
     On CUDA the compact stream is copied (each page's words into its place,
-    zeros after the last page, then the page table and the escape positions)
-    and ``csrc/stream_expand.cu`` writes the token descriptors on the card
-    (span ``device.expand_launch``, beside ``device.h2d``). On CPU the plain
-    host expansion is copied.
+    zeros after the last page, then the page table); ``csrc/stream_expand.cu``
+    finds the escapes in the words (span ``device.resolve_launch``, counter
+    ``page.resolve.device_pages``) and writes the token descriptors (span
+    ``device.expand_launch``) on the card. A page whose tokens do not follow
+    its escapes is counted in ``DeviceStream.bad``, for
+    :func:`check_escapes` after the caller's transfer. On CPU the plain host
+    resolution and expansion are copied, and such a page raises here.
     """
     dev = torch_device(device)
     on_card = dev.type == "cuda"
@@ -486,20 +538,28 @@ def stream_from_numpy(stream: PageStream, aux: RefineAux | None = None, *,
                 w64[at:at + len(w)].copy_(torch.from_numpy(w.view(np.int64)))
                 at += len(w)
             w64[at:].zero_()
-            table, escapes = put(stream.page_table), put(stream.escapes)
+            table = put(stream.page_table)
         else:
             words = put(stream.words32)
             desc = (put(stream.tok_off), put(stream.nbits), put(stream.anchor))
         if aux is not None:
             rec = (put(aux.x_start), put(aux.y_start), put(aux.counts),
                    put(aux.valid[:aux.n_records]))
+    bad = None
     if on_card:
+        pt = stream.page_table
+        with obs.span("device.resolve_launch", cat="device", pages=pt.shape[1],
+                      escapes=stream.n_escapes):
+            escapes, bad = kernel.escape_resolve(words, table, stream.n_escapes,
+                                                 stream.width)
+            obs.count("page.resolve.device_pages", int(np.count_nonzero((pt[3] > 0)
+                                                                        & (pt[1] > 1))))
         with obs.span("device.expand_launch", cat="device", values=stream.n_values,
-                      escapes=len(stream.escapes)):
+                      escapes=stream.n_escapes):
             desc = kernel.expand_stream(table, escapes, stream.n_values, stream.width,
                                         stream.shape[0])
             obs.count("stream.expand.device_values", desc[0].numel())
-    ds = DeviceStream(words, *desc, stream.width, stream.n_values)
+    ds = DeviceStream(words, *desc, stream.width, stream.n_values, bad=bad)
     if aux is not None:
         ds.x_start, ds.y_start, ds.counts, ds.valid = rec
     return ds
@@ -518,8 +578,12 @@ def decode_stream_bits(ds: DeviceStream) -> torch.Tensor:
 
 
 def decode_stream_device(stream: PageStream, *, device="cuda") -> torch.Tensor:
-    """Decode a built stream, keeping the result on ``device``."""
-    return decode_stream_bits(stream_from_numpy(stream, device=device))
+    """Decode a built stream, keeping the result on ``device``; on CUDA it
+    waits for the card's escape check (:func:`check_escapes`)."""
+    ds = stream_from_numpy(stream, device=device)
+    bits = decode_stream_bits(ds)
+    check_escapes([ds])
+    return bits
 
 
 def decode_page_stream(stream: PageStream, *, device="cuda") -> np.ndarray:
@@ -646,6 +710,7 @@ def decode_refine_stream(stream: PageStream, aux: RefineAux, bbox, *,
         keep, _ = segminmax_refine(bits, ds.x_start, ds.y_start, ds.counts,
                                    ds.valid, keys64(qkeys), stream.width)
         keep = keep.cpu().numpy()
+    check_escapes([ds])
     return RefineResult(bits, keep)
 
 
@@ -700,6 +765,7 @@ def decode_refine_stream_multi(stream: PageStream, aux: RefineAux, qkeys,
                                  ds.valid, k, stream.width)
         keep = keep_from_minmax_ref(mm, ds.valid, qkeys, qvalid,
                                     stream.width).cpu().numpy()
+    check_escapes([ds])
     return MultiRefineResult(bits, mm, ds.valid, keep)
 
 

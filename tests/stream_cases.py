@@ -17,8 +17,9 @@ STREAM_BLOCK = 1024
 
 # name -> page sizes; "r" marks a raw page. Escapes: none, <= 4 a page (the
 # fixpoint resolver), many (the candidate scan); raw and single-value pages,
-# empty pages between others, a value count that fills whole blocks, and no
-# values at all.
+# empty pages between others, a value count that fills whole blocks, no
+# values at all, and the token widths 1 and W - 1 and 8 over wild bits (far
+# more runs of n ones than tokens).
 CASES = {
     "no_escapes": [900, 2500],
     "few_escapes": [3000, 1200],
@@ -28,6 +29,7 @@ CASES = {
     "empty_middle": [900, 0, 1200, 0, 0, 40],
     "exact_blocks": [1500, 548],
     "all_empty": [0, 0],
+    "extreme_widths": [2000, 2000, 1500],
 }
 
 
@@ -43,6 +45,12 @@ def _page(rng, case, i, n, dtype):
     x = (np.cumsum(rng.normal(0, 1e-4, n)) + 40.7).astype(dtype)
     if n < 2 or case in ("raw", "single_values"):
         return x, None
+    if case == "extreme_widths":
+        if i == 0:  # n = 1: the marker is a single one, every change escapes
+            return np.repeat(x[::5], 5)[:n], 1
+        uint = np.uint32 if np.dtype(dtype).itemsize == 4 else np.uint64
+        wild = rng.integers(0, np.iinfo(uint).max, n, dtype=uint, endpoint=True).view(dtype)
+        return wild, (8 * np.dtype(dtype).itemsize - 1 if i == 1 else 8)
     n_bits = _no_escape_bits(x)
     if case == "few_escapes":
         # a spike escapes twice (out and back), a jump at the end once

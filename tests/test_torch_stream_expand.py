@@ -10,8 +10,6 @@ held against the plain expansion in ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -22,7 +20,7 @@ from repro.core.pages import PageMeta as JPageMeta  # noqa: E402
 from repro.core.pages import page_stream_plan as j_page_stream_plan  # noqa: E402
 from repro.kernels import fp_delta as jfd  # noqa: E402
 from repro_torch import obs  # noqa: E402
-from repro_torch.core.fp_delta import fp_delta_encode  # noqa: E402
+from repro_torch.core.fp_delta import fp_delta_encode, fp_delta_plan  # noqa: E402
 from repro_torch.kernels import fp_delta as tfd  # noqa: E402
 from repro_torch.kernels.fp_delta import ops as tops  # noqa: E402
 from stream_cases import CASES, port_plans, raw_meta, stored_pages  # noqa: E402
@@ -148,14 +146,29 @@ def test_refine_aux_and_chunks_need_no_expansion(rng, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_build_page_stream_rejects_offsets_off_the_closed_form(dtype):
-    """A plan whose last token does not sit where its escapes put it (a
-    malformed payload) is refused, not expanded into wrong descriptors."""
-    pages = stored_pages(np.random.default_rng(11), "few_escapes", dtype)
-    plan = port_plans(pages, dtype)[0]
-    tfd.build_page_stream([plan])  # well formed
-    offsets = plan.offsets.copy()
-    offsets[-1] += 1
+def test_cpu_stream_refuses_payload_claiming_more_escapes_than_markers(dtype):
+    """A payload whose length claims one more escape than its markers hold
+    (a malformed page) is refused when the CPU stream is built, not
+    expanded into wrong descriptors; the card refuses it too
+    (``tests/test_torch_escape_resolve.py``)."""
+    payload, n, _ = stored_pages(np.random.default_rng(11), "few_escapes", dtype)[0]
+    good = fp_delta_plan(payload, n, np.dtype(dtype))
+    tfd.stream_from_numpy(tfd.build_page_stream([good]), device="cpu")  # well formed
+    bad = fp_delta_plan(payload + bytes(np.dtype(dtype).itemsize), n, np.dtype(dtype))
+    assert bad.n_escapes == good.n_escapes + 1
+    ts = tfd.build_page_stream([good, bad])
     with pytest.raises(ValueError, match="do not follow its escapes"):
-        tfd.build_page_stream([dataclasses.replace(plan, offsets=offsets)])
+        tfd.stream_from_numpy(ts, device="cpu")
+    with pytest.raises(ValueError, match="do not follow its escapes"):
+        tfd.decode_page_stream(ts, device="cpu")
 
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_build_page_stream_refuses_payload_shorter_than_its_tokens(dtype):
+    """A payload cut inside its tokens (its escape count reads 0) is refused
+    by the stream build on every device, before any word is copied."""
+    payload, n, _ = stored_pages(np.random.default_rng(11), "no_escapes", dtype)[0]
+    plan = fp_delta_plan(payload[: len(payload) // 2], n, np.dtype(dtype))
+    assert plan.n_escapes == 0
+    with pytest.raises(ValueError, match="shorter than its header's tokens"):
+        tfd.build_page_stream([plan])
