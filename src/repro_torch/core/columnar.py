@@ -167,6 +167,16 @@ class GeometryColumns:
         return self.types, coords, part_sizes, parts_per_subgeom, subgeoms_per_record
 
 
+def compact_levels(types, type_rep, rep, defn, keep):
+    """The four level streams of the records ``keep`` (one bool a record)
+    marks: each slot and sub-geometry follows the record it belongs to.
+    Equal to ``permute_records`` on the kept records in order, so canonical
+    levels stay canonical."""
+    slot_keep = keep[np.cumsum(rep == 0) - 1]
+    type_keep = keep[np.cumsum(type_rep == 0) - 1]
+    return types[type_keep], type_rep[type_keep], rep[slot_keep], defn[slot_keep]
+
+
 def from_ragged(
     types: np.ndarray,
     coords: np.ndarray,

@@ -101,7 +101,7 @@ from repro_torch._device import torch_device
 from repro_torch.io.checksum import ChecksumError, checksum_fn, crc32c
 from repro_torch.io.source import LocalFileSource
 
-from .columnar import GeometryColumns, TorchCoords, assemble
+from .columnar import GeometryColumns, TorchCoords, assemble, compact_levels
 from .filters import Predicate, canonical_bbox, validate_predicate
 from .fp_delta import fp_delta_execute
 from .geometry import Geometry
@@ -134,6 +134,20 @@ def footer_data_bytes(footer: dict) -> int:
 def footer_page_count(footer: dict) -> int:
     """Number of x/y page pairs (the unit of the per-page spatial index)."""
     return sum(len(rg["x_pages"]) for rg in footer["row_groups"])
+
+
+def rg_runs(idx: SpatialIndex, rg_i: int, runs) -> tuple[int, list[tuple[int, int, int]]]:
+    """Where page runs of row group ``rg_i`` lie: the index entry of the row
+    group's first page, and for each run ``(p0, p1)`` of its pages the
+    row-group-local records ``[r0, r1)`` it holds and the stored bytes of
+    its x and y pages, as ``(r0, r1, nbytes)``."""
+    base = int(np.searchsorted(idx.row_group, rg_i, side="left"))
+    spans = []
+    for p0, p1 in runs:
+        j0, j1 = base + p0, base + p1 - 1
+        spans.append((int(idx.rec_start[j0]), int(idx.rec_start[j1] + idx.rec_count[j1]),
+                      int(idx.x_nbytes[j0 : j1 + 1].sum() + idx.y_nbytes[j0 : j1 + 1].sum())))
+    return base, spans
 
 
 @dataclass
@@ -343,6 +357,48 @@ class RowGroupChunk:
     y: np.ndarray | None = None
 
 
+def row_group_chunk(item, rec_vcounts: np.ndarray) -> RowGroupChunk:
+    """Build one ``chunk_plan_pairs`` item into a :class:`RowGroupChunk`:
+    the page stream and its refine aux (``rec_vcounts``: values a record,
+    indexed as the item's record range), or, for a pair too large for any
+    launch, its values decoded on the host (same bits)."""
+    from repro_torch.kernels.fp_delta import build_page_stream, build_refine_aux
+
+    kind, plans, pairs, (rl, rh) = item
+    if kind == "host":
+        return RowGroupChunk("host", rl, rh, x=fp_delta_execute(plans[0]),
+                             y=fp_delta_execute(plans[1]))
+    stream = build_page_stream(plans)
+    aux = build_refine_aux(stream, [(a - rl, b - rl) for a, b in pairs],
+                           rec_vcounts[rl:rh])
+    return RowGroupChunk("dev", rl, rh, stream=stream, aux=aux)
+
+
+def gather_records(bits, x_start, y_start, counts, keep, dtype, *,
+                   keep_on_device: bool = False):
+    """The x and y values of the records ``keep`` selects (a mask or record
+    indices) out of a decoded stream whose record slices start at
+    ``x_start``/``y_start``: one ``gather_stream_values`` an axis (looked
+    up in ``repro_torch.kernels.fp_delta`` at each call, as every launch of
+    the read path is)."""
+    from repro_torch.kernels.fp_delta import gather_stream_values, ragged_ranges
+
+    c = counts[keep]
+    ix = ragged_ranges(x_start[keep], c)
+    iy = ragged_ranges(y_start[keep], c)
+    return (gather_stream_values(bits, ix, dtype, keep_on_device=keep_on_device),
+            gather_stream_values(bits, iy, dtype, keep_on_device=keep_on_device))
+
+
+def gather_records_host(x: np.ndarray, y: np.ndarray, starts, counts, keep):
+    """:func:`gather_records` for values decoded on the host: the records'
+    x values and y values both start at ``starts``."""
+    from repro_torch.kernels.fp_delta import ragged_ranges
+
+    iv = ragged_ranges(starts[keep], counts[keep])
+    return x[iv], y[iv]
+
+
 @dataclass
 class RowGroupData:
     """Every page of one row group, read once (see ``read_row_group``).
@@ -505,6 +561,41 @@ class SpatialParquetReader:
                     last["offset"] + last["nbytes"] - first["offset"],
                 ))
         return ranges
+
+    def _coord_blobs(self, src, rg_i: int, rg, j: int, p: int, stats: ReadStats):
+        """The checked x and y blobs of page ``p`` (index entry ``j``) of
+        row group ``rg_i``: ``(meta_x, blob_x, meta_y, blob_y)``."""
+        idx = self.index
+        meta_x = PageMeta.from_dict(rg["x_pages"][p])
+        meta_y = PageMeta.from_dict(rg["y_pages"][p])
+        blob_x = self._checked_blob(src, int(idx.x_offset[j]), int(idx.x_nbytes[j]),
+                                    meta_x.crc, stats, f"x page {p} of row group {rg_i}")
+        blob_y = self._checked_blob(src, int(idx.y_offset[j]), int(idx.y_nbytes[j]),
+                                    meta_y.crc, stats, f"y page {p} of row group {rg_i}")
+        return meta_x, blob_x, meta_y, blob_y
+
+    def _plan_pages(self, src, rg_i: int, rg, base: int, runs, spans,
+                    stats: ReadStats):
+        """The page-stream plans of every coordinate page of ``runs`` (x, y
+        a page, in stream order) and each page pair's record range, local to
+        the runs' records laid end to end: the operands of
+        ``chunk_plan_pairs``. ``spans`` is :func:`rg_runs`'s. Checksums gate
+        the launch chain: a corrupt page is caught here, before any plan or
+        kernel sees it."""
+        idx = self.index
+        plans: list = []
+        pairs: list[tuple[int, int]] = []
+        local = 0
+        for (p0, p1), (r0, r1, _) in zip(runs, spans):
+            for p in range(p0, p1):
+                j = base + p
+                meta_x, blob_x, meta_y, blob_y = self._coord_blobs(src, rg_i, rg, j, p, stats)
+                plans.append(page_stream_plan(blob_x, meta_x, self.coord_dtype, self.codec))
+                plans.append(page_stream_plan(blob_y, meta_y, self.coord_dtype, self.codec))
+                lo = local + int(idx.rec_start[j]) - r0
+                pairs.append((lo, lo + int(idx.rec_count[j])))
+            local += r1 - r0
+        return plans, pairs
 
     def _level_blob(self, src, rg, name: str, stats: ReadStats):
         meta = rg[name]
@@ -716,15 +807,16 @@ class SpatialParquetReader:
                 runs_by_rg.setdefault(rg_i, []).append((p0, p1))
                 stats.pages_read += p1 - p0
 
-            # per-row-group work items: (rg_i, rg, runs, base, extra_pages, ranges)
+            # per-row-group work items:
+            # (rg_i, rg, runs, base, spans, extra_pages, ranges)
             items = []
             for rg_i, rg in enumerate(self.footer["row_groups"]):
                 runs = runs_by_rg.get(rg_i)
                 if not runs:
                     continue
-                base = int(np.searchsorted(idx.row_group, rg_i, side="left"))
+                base, spans = rg_runs(idx, rg_i, runs)
                 extra_pages = {k: rg["extra"][k] for k in read_extra}
-                items.append((rg_i, rg, runs, base, extra_pages,
+                items.append((rg_i, rg, runs, base, spans, extra_pages,
                               self._rg_ranges(rg, runs, base, want_geom, extra_pages)))
 
         fused = use_device and want_geom and (
@@ -767,23 +859,15 @@ class SpatialParquetReader:
         level_parts = (types_parts, type_rep_parts, rep_parts, defn_parts)
         src_iter = self._iter_sources(items, coalesce)
         try:
-            for (rg_i, rg, runs, base, extra_pages, _ranges), src in src_iter:
-                xp, yp = rg["x_pages"], rg["y_pages"]
+            for (rg_i, rg, runs, base, spans, extra_pages, _ranges), src in src_iter:
                 if want_geom:
                     lv = self._decode_rg_levels(src, rg, stats)
 
                 deferred: list[tuple] = []  # (plan, dest array, dest offset)
 
-                def _coord_page(axis, page_dict, j, p, dest, off, cnt):
+                def _coord_page(meta, blob, dest, off, cnt):
                     """Decode one coordinate page now (host) or defer it to
                     the row group's batched device launch (fp_delta only)."""
-                    meta = PageMeta.from_dict(page_dict)
-                    blob = self._checked_blob(
-                        src,
-                        int(idx.x_offset[j] if axis == "x" else idx.y_offset[j]),
-                        int(idx.x_nbytes[j] if axis == "x" else idx.y_nbytes[j]),
-                        meta.crc, stats,
-                        f"{axis} page {p} of row group {rg_i}")
                     if use_device and meta.encoding == ENC_FP_DELTA:
                         deferred.append(
                             (page_stream_plan(blob, meta, self.coord_dtype, self.codec),
@@ -794,22 +878,18 @@ class SpatialParquetReader:
 
                 with obs.span("rg.decode", cat="decode", rg=rg_i,
                               device=device):
-                    for p0, p1 in runs:
-                        j0, j1 = base + p0, base + p1 - 1
-                        r0 = int(idx.rec_start[j0])
-                        r1 = int(idx.rec_start[j1] + idx.rec_count[j1])
+                    for (p0, p1), (r0, r1, nbytes) in zip(runs, spans):
                         stats.records_scanned += r1 - r0
                         if want_geom:
                             for p in range(p0, p1):
                                 j = base + p
                                 cnt = int(idx.count[j])
-                                _coord_page("x", xp[p], j, p, x_all, w, cnt)
-                                _coord_page("y", yp[p], j, p, y_all, w, cnt)
+                                meta_x, blob_x, meta_y, blob_y = self._coord_blobs(
+                                    src, rg_i, rg, j, p, stats)
+                                _coord_page(meta_x, blob_x, x_all, w, cnt)
+                                _coord_page(meta_y, blob_y, y_all, w, cnt)
                                 w += cnt
-                            stats.bytes_read += int(
-                                idx.x_nbytes[j0 : j1 + 1].sum()
-                                + idx.y_nbytes[j0 : j1 + 1].sum()
-                            )
+                            stats.bytes_read += nbytes
                             lv.append_run(level_parts, r0, r1)
                         self._decode_run_extras(src, extra_pages, extra_all,
                                                 we, p0, p1, stats)
@@ -894,14 +974,10 @@ class SpatialParquetReader:
         rejects.
         """
         from repro_torch.kernels.fp_delta import (
-            build_page_stream,
-            build_refine_aux,
             check_escapes,
             chunk_plan_pairs,
             decode_refine_stream,
             decode_stream_bits,
-            gather_stream_values,
-            ragged_ranges,
             stream_from_numpy,
         )
 
@@ -929,49 +1005,20 @@ class SpatialParquetReader:
         unchecked: list = []  # decoded streams whose escape check is pending
         src_iter = self._iter_sources(items, coalesce)
         try:
-            for (rg_i, rg, runs, base, extra_pages, _ranges), src in src_iter:
-                xp, yp = rg["x_pages"], rg["y_pages"]
+            for (rg_i, rg, runs, base, spans, extra_pages, _ranges), src in src_iter:
                 lv = self._decode_rg_levels(src, rg, stats)
                 rec_vcounts_rg = lv.record_value_counts()
                 we0 = we  # this row group's record span in the extra columns
 
-                plans: list = []            # x,y plan per page, stream order
-                pairs: list[tuple[int, int]] = []   # local record range per pair
                 vc_parts: list[np.ndarray] = []
-                local_base = 0
                 plan_span = obs.span("rg.plan", cat="plan", rg=rg_i)
                 with plan_span:
-                    for p0, p1 in runs:
-                        j0, j1 = base + p0, base + p1 - 1
-                        r0 = int(idx.rec_start[j0])
-                        r1 = int(idx.rec_start[j1] + idx.rec_count[j1])
+                    plans, pairs = self._plan_pages(src, rg_i, rg, base, runs,
+                                                    spans, stats)
+                    for (p0, p1), (r0, r1, nbytes) in zip(runs, spans):
                         stats.records_scanned += r1 - r0
-                        for p in range(p0, p1):
-                            j = base + p
-                            meta_x = PageMeta.from_dict(xp[p])
-                            meta_y = PageMeta.from_dict(yp[p])
-                            # checksums gate the launch chain: a corrupt page
-                            # is caught here, before any plan or kernel
-                            # sees it
-                            blob_x = self._checked_blob(
-                                src, int(idx.x_offset[j]), int(idx.x_nbytes[j]),
-                                meta_x.crc, stats,
-                                f"x page {p} of row group {rg_i}")
-                            blob_y = self._checked_blob(
-                                src, int(idx.y_offset[j]), int(idx.y_nbytes[j]),
-                                meta_y.crc, stats,
-                                f"y page {p} of row group {rg_i}")
-                            plans.append(page_stream_plan(
-                                blob_x, meta_x, dtype, self.codec))
-                            plans.append(page_stream_plan(
-                                blob_y, meta_y, dtype, self.codec))
-                            lo_loc = local_base + int(idx.rec_start[j]) - r0
-                            pairs.append((lo_loc, lo_loc + int(idx.rec_count[j])))
-                        stats.bytes_read += int(
-                            idx.x_nbytes[j0 : j1 + 1].sum() + idx.y_nbytes[j0 : j1 + 1].sum()
-                        )
+                        stats.bytes_read += nbytes
                         vc_parts.append(rec_vcounts_rg[r0:r1])
-                        local_base += r1 - r0
                         lv.append_run(level_parts, r0, r1)
                         self._decode_run_extras(src, extra_pages, extra_all, we,
                                                 p0, p1, stats)
@@ -986,8 +1033,10 @@ class SpatialParquetReader:
                     attr_rg = filter.mask(
                         {k: extra_all[k][we0:we] for k in filter.columns()})
 
-                # chunk page pairs into fused launches under the cap
-                for kind, cplans, cpairs, (rl, rh) in chunk_plan_pairs(plans, pairs):
+                # chunk page pairs into fused launches under the cap; each
+                # chunk is built, launched and gathered before the next
+                for item in chunk_plan_pairs(plans, pairs):
+                    kind, _, cpairs, (rl, rh) = item
                     vc = rec_vcounts[rl:rh]
                     attr_c = attr_rg[rl:rh] if attr_rg is not None else None
                     if kind == "host":
@@ -995,57 +1044,46 @@ class SpatialParquetReader:
                         # pair on the host (same bits via fp_delta_execute)
                         with obs.span("rg.launch", cat="decode", rg=rg_i,
                                       kind="host"):
-                            x_v = fp_delta_execute(cplans[0])
-                            y_v = fp_delta_execute(cplans[1])
-                            keep_c = (_bbox_keep_mask(x_v, y_v, vc, bbox)
+                            ch = row_group_chunk(item, rec_vcounts)
+                            keep_c = (_bbox_keep_mask(ch.x, ch.y, vc, bbox)
                                       if do_refine else np.ones(len(vc), bool))
                             if attr_c is not None:
                                 keep_c = keep_c & attr_c
-                            starts = np.cumsum(vc) - vc
-                            iv = ragged_ranges(starts[keep_c], vc[keep_c])
-                            xs, ys = x_v[iv], y_v[iv]
+                            xs, ys = gather_records_host(ch.x, ch.y, np.cumsum(vc) - vc,
+                                                         vc, keep_c)
                         if keep_on_device:
                             xs = TorchCoords.from_numpy(xs, device)
                             ys = TorchCoords.from_numpy(ys, device)
-                        if do_compact and obs.enabled():
-                            vals_pruned += int(vc.sum() - vc[keep_c].sum())
-                        keep_parts.append(keep_c)
-                        x_parts.append(xs)
-                        y_parts.append(ys)
-                        continue
-                    with obs.span("rg.launch", cat="device", rg=rg_i,
-                                  kind="refine" if do_refine else "decode",
-                                  pairs=len(cpairs)):
-                        stream = build_page_stream(cplans)
-                        aux = build_refine_aux(
-                            stream, [(a - rl, b - rl) for a, b in cpairs], vc)
-                        if attr_c is not None and do_refine:
-                            # the device record mask is valid ∧ bbox; AND-ing
-                            # the attribute mask into a fresh copy of valid
-                            # makes it bbox ∧ attrs in the same launch
-                            v2 = aux.valid.copy()
-                            v2[:len(attr_c)] &= attr_c
-                            aux = dc_replace(aux, valid=v2)
-                        if do_refine:
-                            res = decode_refine_stream(stream, aux, bbox,
-                                                       device=device)
-                            keep_c, bits_d = res.keep, res.bits
-                        else:
-                            ds = stream_from_numpy(stream, device=device)
-                            bits_d = decode_stream_bits(ds)
-                            unchecked.append(ds)
-                            keep_c = (attr_c.copy() if attr_c is not None
-                                      else np.ones(len(vc), bool))
+                    else:
+                        with obs.span("rg.launch", cat="device", rg=rg_i,
+                                      kind="refine" if do_refine else "decode",
+                                      pairs=len(cpairs)):
+                            ch = row_group_chunk(item, rec_vcounts)
+                            aux = ch.aux
+                            if attr_c is not None and do_refine:
+                                # the device record mask is valid ∧ bbox;
+                                # AND-ing the attribute mask into valid makes
+                                # it bbox ∧ attrs in the same launch
+                                aux = dc_replace(aux, valid=aux.valid & attr_c)
+                            if do_refine:
+                                res = decode_refine_stream(ch.stream, aux, bbox,
+                                                           device=device)
+                                keep_c, bits_d = res.keep, res.bits
+                            else:
+                                ds = stream_from_numpy(ch.stream, device=device)
+                                bits_d = decode_stream_bits(ds)
+                                unchecked.append(ds)
+                                keep_c = (attr_c.copy() if attr_c is not None
+                                          else np.ones(len(vc), bool))
+                        with obs.span("rg.gather", cat="transfer", rg=rg_i):
+                            xs, ys = gather_records(bits_d, aux.x_start, aux.y_start,
+                                                    aux.counts, keep_c, dtype,
+                                                    keep_on_device=keep_on_device)
                     if do_compact and obs.enabled():
                         vals_pruned += int(vc.sum() - vc[keep_c].sum())
                     keep_parts.append(keep_c)
-                    with obs.span("rg.gather", cat="transfer", rg=rg_i):
-                        ix = ragged_ranges(aux.x_start[keep_c], aux.counts[keep_c])
-                        iy = ragged_ranges(aux.y_start[keep_c], aux.counts[keep_c])
-                        x_parts.append(gather_stream_values(
-                            bits_d, ix, dtype, keep_on_device=keep_on_device))
-                        y_parts.append(gather_stream_values(
-                            bits_d, iy, dtype, keep_on_device=keep_on_device))
+                    x_parts.append(xs)
+                    y_parts.append(ys)
         finally:
             src_iter.close()
         # streams decoded without a refine are checked once, here (after the
@@ -1062,14 +1100,8 @@ class SpatialParquetReader:
                 rep = np.concatenate(rep_parts)
                 defn = np.concatenate(defn_parts)
                 if do_compact:
-                    # record-aligned level subset == permute_records on the kept
-                    # (sorted) records: canonical levels stay canonical
-                    slot_keep = keep_all[np.cumsum(rep == 0) - 1]
-                    type_keep = keep_all[np.cumsum(type_rep == 0) - 1]
-                    types = types[type_keep]
-                    type_rep = type_rep[type_keep]
-                    rep = rep[slot_keep]
-                    defn = defn[slot_keep]
+                    types, type_rep, rep, defn = compact_levels(
+                        types, type_rep, rep, defn, keep_all)
                 if keep_on_device:
                     x = TorchCoords.concat(x_parts)
                     y = TorchCoords.concat(y_parts)
@@ -1112,12 +1144,12 @@ class SpatialParquetReader:
             torch_device(device)  # "cuda" without a card raises here
         idx = self.index
         rg = self.footer["row_groups"][rg_i]
-        base = int(np.searchsorted(idx.row_group, rg_i, side="left"))
         n_pages = len(rg["x_pages"])
+        runs = [(0, n_pages)] if n_pages else []
+        base, spans = rg_runs(idx, rg_i, runs)
         want_extra = (list(self.extra_schema) if columns is None
                       else [c for c in columns if c in self.extra_schema])
         extra_pages = {k: rg["extra"][k] for k in want_extra}
-        runs = [(0, n_pages)]
         stats = ReadStats()
         with obs.span("rg.read_full", cat="io", rg=rg_i, device=device):
             src = _CoalescedRanges(
@@ -1133,23 +1165,7 @@ class SpatialParquetReader:
             }
             self._decode_run_extras(src, extra_pages, extra_all, 0,
                                     0, n_pages, stats)
-            if n_pages:
-                j0, j1 = base, base + n_pages - 1
-                stats.bytes_read += int(idx.x_nbytes[j0 : j1 + 1].sum()
-                                        + idx.y_nbytes[j0 : j1 + 1].sum())
-            rec0 = int(idx.rec_start[base]) if n_pages else 0
-
-            def coord_blobs(p):
-                j = base + p
-                meta_x = PageMeta.from_dict(rg["x_pages"][p])
-                meta_y = PageMeta.from_dict(rg["y_pages"][p])
-                blob_x = self._checked_blob(
-                    src, int(idx.x_offset[j]), int(idx.x_nbytes[j]),
-                    meta_x.crc, stats, f"x page {p} of row group {rg_i}")
-                blob_y = self._checked_blob(
-                    src, int(idx.y_offset[j]), int(idx.y_nbytes[j]),
-                    meta_y.crc, stats, f"y page {p} of row group {rg_i}")
-                return meta_x, blob_x, meta_y, blob_y
+            stats.bytes_read += sum(nbytes for _, _, nbytes in spans)
 
             if device == "host":
                 total_vals = int(idx.count[base : base + n_pages].sum())
@@ -1159,7 +1175,8 @@ class SpatialParquetReader:
                 with obs.span("rg.decode", cat="decode", rg=rg_i,
                               device="host"):
                     for p in range(n_pages):
-                        meta_x, blob_x, meta_y, blob_y = coord_blobs(p)
+                        meta_x, blob_x, meta_y, blob_y = self._coord_blobs(
+                            src, rg_i, rg, base + p, p, stats)
                         cnt = int(idx.count[base + p])
                         decode_page(blob_x, meta_x, self.coord_dtype,
                                     self.codec, out=x_all[w : w + cnt])
@@ -1169,38 +1186,13 @@ class SpatialParquetReader:
                 return RowGroupData(rg_i, n_rec, rec_vcounts, lv, extra_all,
                                     stats.bytes_read, x=x_all, y=y_all)
 
-            from repro_torch.kernels.fp_delta import (
-                build_page_stream,
-                build_refine_aux,
-                chunk_plan_pairs,
-            )
+            from repro_torch.kernels.fp_delta import chunk_plan_pairs
 
-            plans: list = []
-            pairs: list[tuple[int, int]] = []
             with obs.span("rg.plan", cat="plan", rg=rg_i, pages=n_pages):
-                for p in range(n_pages):
-                    meta_x, blob_x, meta_y, blob_y = coord_blobs(p)
-                    plans.append(page_stream_plan(
-                        blob_x, meta_x, self.coord_dtype, self.codec))
-                    plans.append(page_stream_plan(
-                        blob_y, meta_y, self.coord_dtype, self.codec))
-                    j = base + p
-                    r0 = int(idx.rec_start[j]) - rec0
-                    pairs.append((r0, r0 + int(idx.rec_count[j])))
-            chunks: list[RowGroupChunk] = []
-            for kind, cplans, cpairs, (rl, rh) in chunk_plan_pairs(plans, pairs):
-                if kind == "host":
-                    chunks.append(RowGroupChunk(
-                        "host", rl, rh,
-                        x=fp_delta_execute(cplans[0]),
-                        y=fp_delta_execute(cplans[1])))
-                    continue
-                stream = build_page_stream(cplans)
-                aux = build_refine_aux(
-                    stream, [(a - rl, b - rl) for a, b in cpairs],
-                    rec_vcounts[rl:rh])
-                chunks.append(RowGroupChunk("dev", rl, rh,
-                                            stream=stream, aux=aux))
+                plans, pairs = self._plan_pages(src, rg_i, rg, base, runs,
+                                                spans, stats)
+            chunks = [row_group_chunk(item, rec_vcounts)
+                      for item in chunk_plan_pairs(plans, pairs)]
             return RowGroupData(rg_i, n_rec, rec_vcounts, lv, extra_all,
                                 stats.bytes_read, chunks=chunks)
 

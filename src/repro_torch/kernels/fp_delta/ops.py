@@ -49,7 +49,7 @@ from repro_torch.core.fp_delta import HEADER_BITS, FPDeltaPlan, fp_delta_execute
 from repro_torch.kernels.minmax import (
     bbox_query_keys,
     inf_keys64,
-    keep_from_minmax_ref,
+    keep_from_minmax,
     keys64,
     segminmax_refine,
 )
@@ -417,16 +417,13 @@ class RefineAux:
 
     A record's x values occupy one contiguous slice of the stream and its y
     values another (pages are record-aligned and interleave x,y per page).
-    ``seg_flag`` marks slice starts (padding tail flagged, mirroring the
-    anchor-padding rule of the decode); ``end_pos[r] = (x_end, y_end)`` is
-    the record's last value on each axis. ``x_start``/``y_start``/``counts``
-    are the slice geometry the refine kernel reduces over and the host uses
-    to build survivor gather indices.
+    ``x_start``/``y_start``/``counts`` are the slice geometry kernel 2
+    reduces over and the host uses to build survivor gather indices;
+    ``valid`` is kernel 2's record operand, which gates the survivor mask
+    (a caller may AND an attribute mask into it).
     """
 
-    seg_flag: np.ndarray   # (n_blocks, STREAM_BLOCK) int32, 1 at slice starts
-    end_pos: np.ndarray    # (n_rec_pad, 2) int32
-    valid: np.ndarray      # (n_rec_pad,) bool — records with >= 1 value
+    valid: np.ndarray      # (n_records,) bool — records with >= 1 value
     n_records: int
     x_start: np.ndarray    # (n_records,) int64 stream offset of x slice
     y_start: np.ndarray    # (n_records,) int64
@@ -445,34 +442,19 @@ def build_refine_aux(stream: PageStream, pairs, rec_vcounts) -> RefineAux:
           if obs.enabled() else obs.NULL_SPAN):
         counts = np.ascontiguousarray(rec_vcounts, dtype=np.int64)
         n_rec = len(counts)
-        total = stream.n_values
-        n_pad_vals = stream.shape[0] * stream.shape[1]
-        flag = np.zeros(n_pad_vals, np.int32)
-        flag[total:] = 1  # isolate padding into its own throwaway segments
         x_start = np.zeros(n_rec, np.int64)
         y_start = np.zeros(n_rec, np.int64)
         off = 0
         for i, (r0, r1) in enumerate(pairs):
             c = counts[r0:r1]
-            nz = c > 0
-            starts = off + np.cumsum(c) - c
-            x_start[r0:r1] = starts
-            flag[starts[nz]] = 1
+            starts = np.cumsum(c) - c
+            x_start[r0:r1] = off + starts
             off += int(stream.counts[2 * i])
-            starts = off + np.cumsum(c) - c
-            y_start[r0:r1] = starts
-            flag[starts[nz]] = 1
+            y_start[r0:r1] = off + starts
             off += int(stream.counts[2 * i + 1])
-        if off != total:
-            raise ValueError(f"refine aux covers {off} values, stream has {total}")
-        n_rec_pad = _pow2_bucket(max(n_rec, 1), 8)
-        end = np.zeros((n_rec_pad, 2), np.int32)
-        end[:n_rec, 0] = x_start + np.maximum(counts - 1, 0)
-        end[:n_rec, 1] = y_start + np.maximum(counts - 1, 0)
-        valid = np.zeros(n_rec_pad, bool)
-        valid[:n_rec] = counts > 0
-        return RefineAux(flag.reshape(stream.shape), end, valid, n_rec,
-                         x_start, y_start, counts)
+        if off != stream.n_values:
+            raise ValueError(f"refine aux covers {off} values, stream has {stream.n_values}")
+        return RefineAux(counts > 0, n_rec, x_start, y_start, counts)
 
 
 @dataclass
@@ -763,8 +745,8 @@ def decode_refine_stream_multi(stream: PageStream, aux: RefineAux, qkeys,
         bits = decode_stream_bits(ds)
         _, mm = segminmax_refine(bits, ds.x_start, ds.y_start, ds.counts,
                                  ds.valid, k, stream.width)
-        keep = keep_from_minmax_ref(mm, ds.valid, qkeys, qvalid,
-                                    stream.width).cpu().numpy()
+        keep = keep_from_minmax(mm, ds.valid, qkeys, qvalid,
+                                stream.width).cpu().numpy()
     check_escapes([ds])
     return MultiRefineResult(bits, mm, ds.valid, keep)
 
@@ -778,8 +760,7 @@ def refine_minmax_multi(mm, valid, qkeys, qvalid, *, width: int) -> np.ndarray:
     """
     with obs.span("device.refine_cached", cat="device",
                   records=int(mm.shape[0]), queries=len(qkeys), width=width):
-        return keep_from_minmax_ref(mm, valid, qkeys, qvalid,
-                                    width).cpu().numpy()
+        return keep_from_minmax(mm, valid, qkeys, qvalid, width).cpu().numpy()
 
 
 def ragged_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -811,3 +792,4 @@ def gather_stream_values(bits: torch.Tensor, idx: np.ndarray, dtype, *,
         if not keep_on_device:
             coords = coords.to_numpy()
     return coords
+

@@ -1,11 +1,16 @@
-from .ops import column_page_stats, column_page_stats_ex, page_minmax, segminmax_refine
+from .ops import (
+    column_page_stats,
+    column_page_stats_ex,
+    keep_from_minmax,
+    page_minmax,
+    segminmax_refine,
+)
 from .ref import (
     bbox_query_keys,
     float_order_key_np,
     float_order_keys,
     inf_keys,
     inf_keys64,
-    keep_from_minmax_ref,
     keys64,
     page_minmax_ref,
     segminmax_refine_ref,
@@ -26,5 +31,5 @@ __all__ = [
     "inf_keys",
     "inf_keys64",
     "keys64",
-    "keep_from_minmax_ref",
+    "keep_from_minmax",
 ]

@@ -8,7 +8,10 @@ Dispatch follows the tensor's device: a CUDA tensor launches the kernel of
 offset per page) in one ``page_minmax`` launch: the TPU version's edge
 padding to its 2048-value tile, and the budgeted batching that bounded the
 padded matrix, have no counterpart here. ``segminmax_refine`` is the
-record-level reduction of :func:`repro_torch.kernels.fp_delta.decode_refine_stream`.
+record-level reduction of :func:`repro_torch.kernels.fp_delta.decode_refine_stream`;
+``keep_from_minmax`` compares the per-record keys it writes with a stack of
+query boxes, as the query server needs, in torch elementwise work on the
+keys' own device (one implementation for every device).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from ..._device import torch_device
 from . import kernel, ref
+from .ref import _I64_MIN, _signed, inf_keys64, keys64
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -42,6 +46,31 @@ def segminmax_refine(bits, x_start, y_start, counts, valid, qkeys, width: int):
                                        qkeys, width)
     return ref.segminmax_refine_ref(bits, x_start, y_start, counts, valid,
                                     qkeys, width)
+
+
+def keep_from_minmax(mm, valid, qkeys, qvalid, width: int) -> torch.Tensor:
+    """(R, 4) per-record min/max keys × Q query boxes → (Q, R) survivor mask.
+
+    ``mm`` is :func:`segminmax_refine`'s second output (unsigned key bit
+    patterns of x_min, x_max, y_min, y_max as int64); ``valid``: (R,) bool
+    on ``mm``'s device; ``qkeys``: (Q, 4, 2) uint32 limbs from
+    :func:`~.ref.stack_bbox_query_keys`, ``qvalid`` its (Q,) bool. Row q is
+    the survivor test of :func:`segminmax_refine` with query q's keys,
+    verbatim (signed keys, so negative coordinates order right; the NaN
+    fence; ``valid`` drops records with no values, which hold the
+    identities); a row with ``qvalid[q]`` False keeps nothing.
+    """
+    dev = mm.device
+    q = torch.tensor([[_signed(k) for k in keys64(row)] for row in qkeys],
+                     dtype=torch.int64, device=dev).reshape(-1, 4, 1)
+    smm = mm ^ _I64_MIN
+    xmn, xmx, ymn, ymx = (smm[:, i][None] for i in range(4))
+    neg, pos = (_signed(k) for k in inf_keys64(width))
+    qv = torch.as_tensor(np.asarray(qvalid, bool), device=dev)[:, None]
+    return (qv & valid[None]
+            & (xmn <= q[:, 1]) & (xmx >= q[:, 0])
+            & (ymn <= q[:, 3]) & (ymx >= q[:, 2])
+            & (xmx <= pos) & (xmn >= neg) & (ymx <= pos) & (ymn >= neg))
 
 
 def column_page_stats(values: np.ndarray, page_bounds: np.ndarray, *,

@@ -61,15 +61,17 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import torch_device
-from repro_torch.core.columnar import GeometryColumns
+from repro_torch.core.columnar import GeometryColumns, compact_levels
 from repro_torch.core.filters import validate_predicate
-from repro_torch.core.reader import ReadStats, RowGroupData, _LEVEL_NAMES
-from repro_torch.kernels.fp_delta import (
-    decode_refine_stream_multi,
-    gather_stream_values,
-    ragged_ranges,
-    refine_minmax_multi,
+from repro_torch.core.reader import (
+    _LEVEL_NAMES,
+    ReadStats,
+    RowGroupData,
+    gather_records,
+    gather_records_host,
+    rg_runs,
 )
+from repro_torch.kernels.fp_delta import decode_refine_stream_multi, refine_minmax_multi
 from repro_torch.kernels.minmax import stack_bbox_query_keys
 
 __all__ = ["SpatialQuery", "SpatialQueryServer"]
@@ -125,8 +127,7 @@ class _HostChunkState:
                     & (self.ymin <= qy1) & (self.ymax >= qy0))
 
     def gather(self, sub: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        iv = ragged_ranges(self.starts[sub], self.counts[sub])
-        return self.x[iv], self.y[iv]
+        return gather_records_host(self.x, self.y, self.starts, self.counts, sub)
 
 
 @dataclass
@@ -151,10 +152,8 @@ class _DevChunkState:
                                    width=self.width)
 
     def gather(self, sub: np.ndarray, dtype) -> tuple[np.ndarray, np.ndarray]:
-        ix = ragged_ranges(self.x_start[sub], self.counts[sub])
-        iy = ragged_ranges(self.y_start[sub], self.counts[sub])
-        return (gather_stream_values(self.bits, ix, dtype),
-                gather_stream_values(self.bits, iy, dtype))
+        return gather_records(self.bits, self.x_start, self.y_start, self.counts,
+                              sub, dtype)
 
 
 def _host_chunk_stats(rec_lo, rec_hi, x, y, vcounts) -> _HostChunkState:
@@ -384,6 +383,7 @@ class SpatialQueryServer:
         # them from the output); mirror that in the byte attribution
         read_extra = want_extra if q.filter is None else want_extra + sorted(
             c for c in q.filter.columns() if c not in want_extra)
+        # (shard, row group) -> the record range [r0, r1) of each hit run
         plan: dict[tuple[int, int], list[tuple[int, int]]] = {}
         for shard_i in hits:
             r = self._reader(shard_i)
@@ -395,20 +395,15 @@ class SpatialQueryServer:
                     q.bbox, hit=idx.query(q.bbox, filter=q.filter)):
                 runs_by_rg.setdefault(rg_i, []).append((p0, p1))
             for rg_i, runs in runs_by_rg.items():
-                plan[(shard_i, rg_i)] = runs
+                _, spans = rg_runs(idx, rg_i, runs)
+                plan[(shard_i, rg_i)] = [(r0, r1) for r0, r1, _ in spans]
                 rg = r.footer["row_groups"][rg_i]
-                base = int(np.searchsorted(idx.row_group, rg_i, side="left"))
                 stats.bytes_read += sum(
                     rg[name]["nbytes"] for name in _LEVEL_NAMES)
-                for p0, p1 in runs:
-                    j0, j1 = base + p0, base + p1 - 1
+                for (p0, p1), (r0, r1, nbytes) in zip(runs, spans):
                     stats.pages_read += p1 - p0
-                    stats.records_scanned += int(
-                        idx.rec_start[j1] + idx.rec_count[j1]
-                        - idx.rec_start[j0])
-                    stats.bytes_read += int(
-                        idx.x_nbytes[j0 : j1 + 1].sum()
-                        + idx.y_nbytes[j0 : j1 + 1].sum())
+                    stats.records_scanned += r1 - r0
+                    stats.bytes_read += nbytes
                     for k in read_extra:
                         stats.bytes_read += sum(
                             rg["extra"][k][p]["nbytes"] for p in range(p0, p1))
@@ -519,17 +514,10 @@ class SpatialQueryServer:
                     self.cache.put(key, entry)
                 keep = self._rg_keep(entry, bboxes, filters, qkeys, qvalid,
                                      wave_keep)
-                idx = self._reader(shard_i).index
-                base = int(np.searchsorted(idx.row_group, rg_i, side="left"))
-                vc = entry.data.rec_vcounts
                 for qi in touching:
-                    runs = plans[qi][1][(shard_i, rg_i)]
                     a = acc[qi]
                     rec_parts = []
-                    for p0, p1 in runs:
-                        j0, j1 = base + p0, base + p1 - 1
-                        r0 = int(idx.rec_start[j0])
-                        r1 = int(idx.rec_start[j1] + idx.rec_count[j1])
+                    for r0, r1 in plans[qi][1][(shard_i, rg_i)]:
                         entry.data.levels.append_run(a.level_parts, r0, r1)
                         a.keep_parts.append(keep[qi, r0:r1])
                         for k in a.want_extra:
@@ -555,7 +543,7 @@ class SpatialQueryServer:
     def _finalize(self, q: SpatialQuery, hits, want_extra,
                   stats: ReadStats, a: "_QueryAccum") -> None:
         """Assemble one query's result exactly like the solo fused scan's
-        tail (level compaction by the record-aligned cumsum trick)."""
+        tail (the same level compaction, ``compact_levels``)."""
         with obs.span("serve.query", cat="serve", qid=q.qid,
                       shards=len(hits)) as sp:
             self._finalize_inner(q, hits, want_extra, stats, a)
@@ -574,12 +562,8 @@ class SpatialQueryServer:
             rep = np.concatenate(rep_parts)
             defn = np.concatenate(defn_parts)
             if do_refine:
-                slot_keep = keep_all[np.cumsum(rep == 0) - 1]
-                type_keep = keep_all[np.cumsum(type_rep == 0) - 1]
-                types = types[type_keep]
-                type_rep = type_rep[type_keep]
-                rep = rep[slot_keep]
-                defn = defn[slot_keep]
+                types, type_rep, rep, defn = compact_levels(
+                    types, type_rep, rep, defn, keep_all)
             x = (np.concatenate(a.x_parts) if a.x_parts
                  else np.zeros(0, self.coord_dtype))
             y = (np.concatenate(a.y_parts) if a.y_parts

@@ -33,6 +33,14 @@ PARENTS = {
     "scan.assemble": {"scan.file"},
     "rg.value_counts": {"scan.file"},
     "reader.open": {None},
+    # the spans the benchmark reads
+    "rg.plan": {"scan.file"},
+    "rg.launch": {"scan.file"},
+    "rg.gather": {"scan.file"},
+    "device.h2d": {"rg.launch"},
+    "device.decode_launch": {"rg.launch"},
+    "device.refine_launch": {"rg.launch"},
+    "device.gather": {"rg.gather"},
 }
 
 
@@ -98,7 +106,7 @@ def test_traced_read_returns_the_same_bits(porto_file, telemetry_off_after):
 
 def test_each_new_span_opens_under_its_parent_on_the_calling_thread(
         porto_file, telemetry_off_after):
-    _, tracer = _traced_read(porto_file)
+    (geo, _, stats), tracer = _traced_read(porto_file)
     spans = tracer.spans()
     by_id = {s["args"]["span_id"]: s for s in spans}
     me = threading.get_ident()
@@ -122,6 +130,22 @@ def test_each_new_span_opens_under_its_parent_on_the_calling_thread(
     assert plan["encoding"] == "fp_delta" and plan["values"] > 0
     assert next(s for s in spans if s["name"] == "rg.checksum")["args"]["bytes"] > 0
     assert next(s for s in spans if s["name"] == "stream.aux")["args"]["records"] > 0
+
+    def args(name):
+        return [s["args"] for s in spans if s["name"] == name]
+
+    # every row group here is one launch chunk: the launches cover the
+    # records and values the read scanned, and the gathers its survivors
+    decodes, refines = args("device.decode_launch"), args("device.refine_launch")
+    assert len(decodes) == len(refines) == len(args("device.h2d"))
+    for d, f, h in zip(decodes, refines, args("device.h2d")):
+        assert d["width"] == f["width"] == 64
+        assert d["values"] == f["values"] == h["values"] > 0
+    assert sum(f["records"] for f in refines) == stats.records_scanned
+    gathers = args("device.gather")
+    assert len(gathers) == 2 * len(refines)
+    assert not any(g["on_device"] for g in gathers)
+    assert sum(g["values"] for g in gathers) == 2 * geo.n_values
 
 
 @pytest.mark.parametrize("path,read", [

@@ -327,7 +327,7 @@ def test_keep_from_minmax_matches_reference(rng, width):
     qkeys, qvalid = tmm.stack_bbox_query_keys(boxes, np.dtype(dtype))
     jq, jv = jmm.stack_bbox_query_keys(boxes, np.dtype(dtype))
     assert np.array_equal(qkeys, jq) and np.array_equal(qvalid, jv)
-    got = tmm.keep_from_minmax_ref(mm, valid, qkeys, qvalid, width).numpy()
+    got = tmm.keep_from_minmax(mm, valid, qkeys, qvalid, width).numpy()
     u = mm.numpy().view(np.uint64).T                       # (4, R) unsigned keys
     limbs = np.stack([u & 0xFFFFFFFF, u >> 32], 1).reshape(8, -1).astype(np.uint32)
     want = np.array(jops._keep_from_minmax(limbs, valid.numpy(), qkeys, width))

@@ -291,6 +291,32 @@ def test_integer_coordinates_refine_on_host(tmp_path, rng):
             tr.read_columnar(bbox=b, refine=True, device="cpu", keep_on_device=True)
 
 
+@pytest.mark.parametrize("kind,n", [("porto_taxi_like", 300), ("ebird_like", 2000),
+                                    ("roads_like", 400), ("buildings_like", 500)])
+def test_compact_levels_equals_permute_records(rng, kind, n):
+    """The record-aligned level subset the fused read and the query server
+    assemble with equals ``permute_records`` on the kept records, empty
+    records (one slot, no value) among them."""
+    from repro_torch.core.writer import permute_records
+    from repro_torch.data import synthetic as tsyn
+
+    types, coords, part_sizes, pps, spr = getattr(tsyn, kind)(n, seed=7).to_ragged()
+    assert (spr == 1).all()  # one sub-geometry a record: insert empties there
+    at = np.sort(rng.integers(0, len(spr) + 1, len(spr) // 8))
+    at[:2] = 0  # leading empty records
+    cols = tcol.from_ragged(np.insert(types, at, 0), coords, part_sizes,
+                            np.insert(pps, at, 0), np.insert(spr, at, 1))
+    n_rec = cols.n_records
+    empty = cols.defn[cols.rep == 0] == 0
+    assert empty.sum() == len(at)
+    for keep in (rng.random(n_rec) < 0.5, rng.random(n_rec) < 0.05,
+                 np.ones(n_rec, bool), np.zeros(n_rec, bool), empty):
+        want = permute_records(cols, np.flatnonzero(keep))
+        got = tcol.compact_levels(cols.types, cols.type_rep, cols.rep, cols.defn, keep)
+        for f, g in zip(("types", "type_rep", "rep", "defn"), got):
+            assert np.array_equal(getattr(want, f), g), (f, int(keep.sum()))
+
+
 def _chunk_coords(data):
     """x, y of a row group read on a device: its chunks' streams decoded on
     the CPU (x and y pages interleave in a stream) and host chunks' values,
