@@ -324,16 +324,42 @@ class _RowGroupLevels:
         rep_parts.append(rp)
         defn_parts.append(self.defn[s0:s1])
 
-    def record_value_counts(self) -> np.ndarray:
-        """Values per record across the whole row group (pages are
-        record-aligned, so hit runs slice out of this contiguously). Traced
-        as the ``rg.value_counts`` span."""
-        with (obs.span("rg.value_counts", cat="decode", slots=len(self.defn))
-              if obs.enabled() else obs.NULL_SPAN):
-            d64 = self.defn.astype(np.int64)
-            value_idx = np.cumsum(d64) - d64
-            total = int(value_idx[-1] + d64[-1]) if len(d64) else 0
-            return np.diff(np.append(value_idx[self.slot_starts], total))
+    def record_value_counts(self, runs=None) -> np.ndarray:
+        """Values per record (int64): a record's slots less its empty ones
+        (``defn`` is 1 at a value, 0 at an empty sub-geometry's marker).
+        Over the whole row group, or over the record runs ``[(r0, r1), ...]``
+        concatenated, each equal to the whole group's counts sliced there.
+        One pass over a run's ``defn`` finds whether it has empty slots;
+        only then are they found (the one array as long as the run's slots,
+        a bool compare), mapped to their records and subtracted. Traced as
+        the ``rg.value_counts`` span; counter ``levels.empty_slots``."""
+        starts, n_rec = self.slot_starts, self.n_rec
+        if runs is None:
+            runs = ((0, n_rec),)
+        with obs.span("rg.value_counts", cat="decode") as sp:
+            out = np.empty(sum(r1 - r0 for r0, r1 in runs), np.int64)
+            w = n_slots = n_empty = 0
+            for r0, r1 in runs:
+                if r1 == r0:
+                    continue
+                vc = out[w : w + r1 - r0]
+                w += r1 - r0
+                st = starts[r0:r1]
+                s1 = int(starts[r1]) if r1 < n_rec else len(self.rep)
+                # slots a record: the next record's start less this one's
+                np.subtract(starts[r0 + 1 : r1], st[:-1], out=vc[:-1])
+                vc[-1] = s1 - st[-1]
+                s0 = int(st[0])
+                defn = self.defn[s0:s1]
+                if defn.min() == 0:  # empty slots to subtract
+                    empty = np.flatnonzero(defn == 0)
+                    vc -= np.bincount(np.searchsorted(st, empty + s0, "right") - 1,
+                                      minlength=len(st))
+                    n_empty += len(empty)
+                n_slots += s1 - s0
+            obs.count("levels.empty_slots", n_empty)
+            sp.add(slots=n_slots, records=len(out))
+            return out
 
 
 @dataclass
@@ -1007,10 +1033,10 @@ class SpatialParquetReader:
         try:
             for (rg_i, rg, runs, base, spans, extra_pages, _ranges), src in src_iter:
                 lv = self._decode_rg_levels(src, rg, stats)
-                rec_vcounts_rg = lv.record_value_counts()
+                # values a read record: the hit runs' counts, concatenated
+                rec_vcounts = lv.record_value_counts([(r0, r1) for r0, r1, _ in spans])
                 we0 = we  # this row group's record span in the extra columns
 
-                vc_parts: list[np.ndarray] = []
                 plan_span = obs.span("rg.plan", cat="plan", rg=rg_i)
                 with plan_span:
                     plans, pairs = self._plan_pages(src, rg_i, rg, base, runs,
@@ -1018,14 +1044,11 @@ class SpatialParquetReader:
                     for (p0, p1), (r0, r1, nbytes) in zip(runs, spans):
                         stats.records_scanned += r1 - r0
                         stats.bytes_read += nbytes
-                        vc_parts.append(rec_vcounts_rg[r0:r1])
                         lv.append_run(level_parts, r0, r1)
                         self._decode_run_extras(src, extra_pages, extra_all, we,
                                                 p0, p1, stats)
                         we += r1 - r0
                     plan_span.add(pages=len(pairs))
-                rec_vcounts = (np.concatenate(vc_parts) if vc_parts
-                               else np.zeros(0, np.int64))
                 # host-evaluated attribute mask for this row group's read
                 # records (aligned with rec_vcounts / the chunk record ranges)
                 attr_rg = None

@@ -15,7 +15,10 @@ widths) is held bit for bit to the bit stream (``pack_tokens`` /
 ``unpack_fixed``), which other widths take, and ``encode_levels`` /
 ``decode_levels`` to the JAX package's on the same streams. One case, marked
 ``cuda``, reads a roads file on the card and compares it with the CPU path,
-which the cases above hold to the reference.
+which the cases above hold to the reference. A Porto-like file with empty
+records and empty parts is read on the fused path (``cpu``, and ``cuda`` on
+the card) and held to the host path, with the empty slots the value count
+subtracted (counter ``levels.empty_slots``).
 """
 
 import dataclasses
@@ -28,6 +31,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import rle
 from repro_torch.core.bitstream import bytes_to_words, pack_tokens, unpack_fixed, words_to_bytes
+from repro_torch.core.columnar import from_ragged
 from repro_torch.core.reader import SpatialParquetReader
 from repro_torch.core.writer import write_file
 from repro_torch.data.synthetic import buildings_like, ebird_like, porto_taxi_like, roads_like
@@ -165,6 +169,81 @@ def test_the_packed_branch_is_traced(files):
     assert len(unpack) == len(rgs)
     assert counters["levels.packed_values"] == sum(rg["n_values"] for rg in rgs)
     assert counters["levels.rle_values"] == sum(rg["n_records"] + rg["n_values"] for rg in rgs)
+
+
+# ------------------------------------------------- empty records and parts
+@pytest.fixture(scope="module")
+def empties_file(tmp_path_factory):
+    """Porto-like trips with empty records (leading, trailing, runs of
+    them) and records of two sub-geometries of which one is empty, and two
+    extra columns: (path, columns)."""
+    rng = np.random.default_rng(11)
+    types, coords, part_sizes, pps, spr = porto_taxi_like(2000, mean_pts=12, seed=8).to_ragged()
+    n = len(spr)
+    rec = np.sort(rng.choice(n, 60, replace=False))
+    spr = spr.copy()
+    spr[rec] = 2                                  # an empty part first, or second
+    at = rec + np.arange(len(rec)) % 2
+    types, pps = np.insert(types, at, types[rec]), np.insert(pps, at, 0)
+    sub = np.cumsum(spr) - spr                    # each record's first sub-geometry
+    at = np.concatenate([[0, 0], np.repeat(sub[rng.choice(n, 20, replace=False)], 3),
+                         [len(types)] * 4])       # empty records
+    cols = from_ragged(np.insert(types, at, 0), coords, part_sizes, np.insert(pps, at, 0),
+                       np.insert(spr, np.searchsorted(sub, at), 1))
+    extra = {"t": rng.integers(0, 1 << 40, cols.n_records),
+             "v": rng.normal(0, 1, cols.n_records).astype(np.float32)}
+    path = tmp_path_factory.mktemp("empties") / "empties.spqf"
+    write_file(path, columns=cols, extra=extra, extra_schema={"t": "<i8", "v": "<f4"},
+               device="cpu", **WRITER)
+    return path, cols
+
+
+def _counted_empty_slots(fn):
+    obs.enable()
+    try:
+        out = fn()
+        return out, obs.snapshot()["counters"].get("levels.empty_slots", 0)
+    finally:
+        obs.disable()
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("box", ["region", "all"])
+def test_a_read_with_empties_equals_the_host_path(empties_file, box, device):
+    """The fused refined read equals the host path's (levels, x and y bits,
+    extras, stats); ``levels.empty_slots`` counts the empty slots of the
+    records it scanned, and ``read_row_group`` those of its whole group."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    path, cols = empties_file
+    empty = cols.defn == 0
+    starts = np.flatnonzero(cols.rep == 0)
+    one_slot = np.diff(starts, append=len(cols.rep)) == 1
+    assert (empty[starts] & one_slot).sum() == 66 and empty.sum() == 66 + 60
+    bbox = _box(cols, BOXES[box])
+    with SpatialParquetReader(path) as r:
+        want = r.read_columnar(bbox, refine=True, device="host")
+        got, n_empty = _counted_empty_slots(
+            lambda: r.read_columnar(bbox, refine=True, device=device))
+        scanned = r.read_columnar(bbox, device="host")
+        rgs = r.footer["row_groups"]
+        assert len(rgs) >= 3
+        for rg_i, rg in enumerate(rgs):
+            data, rg_empty = _counted_empty_slots(lambda: r.read_row_group(rg_i, device=device))
+            assert data.n_records == rg["n_records"]
+            assert rg_empty == int(np.count_nonzero(data.levels.defn == 0))
+    _assert_same(_answer(got), _answer(want), (box, device))
+    assert set(got[1]) == {"t", "v"}
+    for k in got[1]:
+        assert np.array_equal(_bits(got[1][k]), _bits(want[1][k])), k
+    assert dataclasses.asdict(got[2]) == dataclasses.asdict(want[2])
+    # every record of the hit pages: the records the count looked at
+    assert scanned[0].n_records == want[2].records_scanned
+    assert n_empty == int(np.count_nonzero(scanned[0].defn == 0))
+    if box == "all":
+        assert n_empty == int(empty.sum())
+    else:
+        assert 0 < want[0].n_records < cols.n_records
 
 
 # ---------------------------------------------------------------- the codec

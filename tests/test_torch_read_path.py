@@ -317,6 +317,111 @@ def test_compact_levels_equals_permute_records(rng, kind, n):
             assert np.array_equal(getattr(want, f), g), (f, int(keep.sum()))
 
 
+def _empties(rng, arrays, case):
+    """Ragged arrays ``(types, coords, part_sizes, pps, spr)`` with empty
+    records (``leading``, ``trailing``, ``consecutive``) or empty
+    sub-geometries in records of two (``empty_part``: first in some
+    records, second in others) inserted; other cases leave them as they are."""
+    types, coords, part_sizes, pps, spr = arrays
+    n = len(spr)
+    if case in ("none", "no_records"):
+        return arrays
+    if case == "empty_part":
+        # one sub-geometry a record: sub-geometry i is record i
+        rec = np.sort(rng.choice(n, max(2, n // 10), replace=False))
+        at = rec + np.arange(len(rec)) % 2   # the empty one first, then second
+        spr = spr.copy()
+        spr[rec] = 2
+        return (np.insert(types, at, types[rec]), coords, part_sizes,
+                np.insert(pps, at, 0), spr)
+    at = {"leading": np.zeros(3, np.int64), "trailing": np.full(3, n),
+          "consecutive": np.repeat(np.sort(rng.choice(np.arange(1, n), 3, replace=False)),
+                                   [2, 3, 4])}[case]
+    return (np.insert(types, at, 0), coords, part_sizes, np.insert(pps, at, 0),
+            np.insert(spr, at, 1))
+
+
+def _cumsum_value_counts(defn, slot_starts):
+    """The count as it was first written: an exclusive prefix sum of the
+    definition levels, differenced at the record starts."""
+    d64 = defn.astype(np.int64)
+    value_idx = np.cumsum(d64) - d64
+    total = int(value_idx[-1] + d64[-1]) if len(d64) else 0
+    return np.diff(np.append(value_idx[slot_starts], total))
+
+
+@pytest.mark.parametrize("case", ["none", "leading", "trailing", "consecutive",
+                                  "empty_part", "no_records"])
+@pytest.mark.parametrize("kind,n", [("porto_taxi_like", 300), ("ebird_like", 2000),
+                                    ("roads_like", 400), ("buildings_like", 500)])
+def test_record_value_counts_equal_reference(rng, kind, n, case):
+    """Values a record, whole group and hit runs, equal the reference's
+    ``record_value_counts`` and the prefix-sum formula; the empty slots
+    subtracted are counted in ``levels.empty_slots``."""
+    from repro.core.reader import _RowGroupLevels as JLevels
+    from repro_torch import obs
+    from repro_torch.core.reader import _RowGroupLevels as TLevels
+    from repro_torch.data import synthetic as tsyn
+
+    arrays = getattr(tsyn, kind)(n, seed=7).to_ragged()
+    assert (arrays[4] == 1).all()
+    cols = tcol.from_ragged(*_empties(rng, arrays, case))
+    lv = [cols.types, cols.type_rep, cols.rep, cols.defn]
+    if case == "no_records":
+        lv = [a[:0] for a in lv]
+    starts = [np.flatnonzero(lv[2] == 0), np.flatnonzero(lv[1] == 0)]
+    got_lv, ref_lv = TLevels(*lv, *starts), JLevels(*lv, *starts)
+    n_rec = got_lv.n_rec
+    empty = lv[3] == 0
+    if case not in ("none", "no_records"):
+        assert empty.any() and cols.n_records == n_rec
+    if case == "empty_part":   # no empty record: every empty slot shares its record
+        assert not (empty[starts[0]] & (np.diff(starts[0], append=len(lv[2])) == 1)).any()
+
+    want = ref_lv.record_value_counts()
+    assert np.array_equal(want, _cumsum_value_counts(lv[3], starts[0]))
+    cuts = np.unique(np.concatenate([[0, n_rec], rng.integers(0, n_rec + 1, 8)]))
+    runs = [(int(a), int(b)) for a, b in zip(cuts[:-1], cuts[1:])][::2] + [(n_rec, n_rec)]
+    end = np.append(starts[0], len(lv[2]))
+    for sel in (None, runs):
+        tracer = obs.enable()
+        try:
+            got = got_lv.record_value_counts(sel)
+            counters = obs.snapshot()["counters"]
+        finally:
+            obs.disable()
+        sel = [(0, n_rec)] if sel is None else sel
+        assert got.dtype == np.int64 and got.shape == (sum(b - a for a, b in sel),)
+        assert np.array_equal(got, np.concatenate([want[a:b] for a, b in sel]))
+        n_empty = sum(int(empty[end[a]:end[b]].sum()) for a, b in sel)
+        assert counters.get("levels.empty_slots", 0) == n_empty
+        (sp,) = [s for s in tracer.spans() if s["name"] == "rg.value_counts"]
+        assert sp["args"]["records"] == len(got)
+        assert sp["args"]["slots"] == sum(int(end[b] - end[a]) for a, b in sel)
+
+
+def test_record_value_counts_allocate_nothing_as_long_as_the_slots():
+    """A Porto-shaped group (48 slots a record): the count's peak allocation
+    is under two bytes a slot (the prefix sum took more than 16)."""
+    import tracemalloc
+
+    from repro_torch.core.reader import _RowGroupLevels as TLevels
+    from repro_torch.data import synthetic as tsyn
+
+    cols = tsyn.porto_taxi_like(20_000, seed=3)
+    cols.defn[np.flatnonzero(cols.rep == 2)[::50]] = 0   # empties to subtract
+    lv = TLevels(cols.types, cols.type_rep, cols.rep, cols.defn,
+                 np.flatnonzero(cols.rep == 0), np.flatnonzero(cols.type_rep == 0))
+    tracemalloc.start()
+    try:
+        got = lv.record_value_counts()
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert np.array_equal(got, _cumsum_value_counts(cols.defn, lv.slot_starts))
+    assert peak < 2 * len(cols.rep), (peak, len(cols.rep))
+
+
 def _chunk_coords(data):
     """x, y of a row group read on a device: its chunks' streams decoded on
     the CPU (x and y pages interleave in a stream) and host chunks' values,
